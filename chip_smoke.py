@@ -6,13 +6,21 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card):
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. card: name and power limit (nvidia-smi); build the tonal-walk kernel
-     from odr_audioenc_tpu_torch/csrc/ and time the build.
-  2. kernel vs its plain version on the card: the random B=64 recipe and
-     real psy-1 spectra at B=4096 (S=2048 streams); masks equal, power'
+  1. card: name and power limit (nvidia-smi); build both kernels from
+     odr_audioenc_tpu_torch/csrc/ (one nvcc each, started together), time
+     each build and print ptxas's registers / shared memory.
+  2. tonal_walk vs its plain version on the card: the random B=64 recipe
+     and real psy-1 spectra at B=4096 (S=2048 streams); masks equal, power'
      within 1e-3 dB; median times of both with CUDA events.
+  2b. tonal_noise (the fused tonal+noise kernel) vs its plain version
+     tonal_noise_fast: B=64 random-window spectra and the B=4096 spectra of
+     phase 2; tone members equal, at most one noise-member flip per row
+     on average, power' within 1e-2 dB where both have a noise member and
+     1e-3 dB where neither has one; median times of both.
   3. exact path on the card: the golden config music_48s_128_j_psy1 (40
      frames) in f64 through the shared host packer, byte-exact.
+  3b. the same for psy models 0, 2 and 3: music_48s_128_j_psy0,
+     music_48s_128_j_psy2 and tones_48s_192_s_psy3, byte-exact.
   4. main path at full width: S=2048 streams, 48 kHz stereo 128k joint,
      f32 fast path, pack_on_device="frame", music-like PCM with per-stream
      offsets; 3 warm-up + 20 timed steps through Mp2Packer.emit.  Every
@@ -23,18 +31,28 @@ Phases (any failure exits non-zero and prints no result):
      3 dB, the JAX fast path's own bound against the exact path).  cuBLAS
      and the CPU's BLAS sum the f32 spectrum in different orders, which
      flips a few local-maximum candidates and moves those subbands' SMR.
+  4b. the main path of phase 4 with psy_kernel="fused-noise" on the same
+     PCM: every frame CRC-valid, the fused kernel launched once per step
+     and tonal_walk never, >= 90% of frames with phase 4's allocation.
+  5. psy models 0, 2 and 3 on the f32 path at S=2048 (frame pack, a few
+     steps each): every frame CRC-valid, step time printed.
 
-Prints, before the last line, the card line and one JSON line with the
-kernel's figures; the last line is {"ok": true, "device": {...}}.
+Every main-path run (4, 4b, 5) sets the launch counts to 0 just before it
+and reads them just after.  Every process the script starts (nvcc,
+nvidia-smi, the CRC workers) is waited for, and before the result lines it
+checks that no child process is left.  Prints, before the last line, the card line
+and one JSON line with both kernels' figures; the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 import json
-import multiprocessing
 import os
+import pickle
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -55,6 +73,84 @@ def check(cond, msg):
 def _parse_ok(frames):
     from odr_audioenc_tpu.host import mp2parse
     return [bool(mp2parse.parse_frame(f)["crc_ok"]) for f in frames]
+
+
+def all_crc_ok(flat):
+    """CRC check of every frame, parsed by child interpreters (one per core,
+    at most 8), each of which is waited for.  No multiprocessing pool: its
+    resource-tracker process would outlive the script."""
+    n_proc = min(8, os.cpu_count() or 1)
+    chunk = max(1, -(-len(flat) // n_proc))
+    code = (f"import pickle, sys; sys.path[:0] = [{str(ROOT)!r}]; "
+            "from chip_smoke import _parse_ok; "
+            "sys.stdout.buffer.write(pickle.dumps(_parse_ok(pickle.load(sys.stdin.buffer))))")
+
+    def parse(part):
+        res = subprocess.run([sys.executable, "-c", code], input=pickle.dumps(part),
+                             capture_output=True, timeout=600)
+        check(res.returncode == 0, f"CRC worker failed: {res.stderr.decode()[-2000:]}")
+        return pickle.loads(res.stdout)
+
+    with ThreadPoolExecutor(n_proc) as ex:
+        ok = [x for part in ex.map(parse, [flat[i:i + chunk] for i in
+                                           range(0, len(flat), chunk)]) for x in part]
+    return len(ok) == len(flat) and all(ok)
+
+
+def live_children():
+    """PIDs of this process's children that have not been reaped (Linux)."""
+    return [pid for task in Path("/proc/self/task").glob("*/children")
+            for pid in task.read_text().split()]
+
+
+def run_main_path(enc, pcm, warmup, torch, kernels):
+    """Drive `enc` (frame pack) over pcm [steps, S, 2, 1152] through
+    Mp2Packer.emit, with both launch counts set to 0 just before and read
+    just after.  Returns (frames per stream, step seconds, (tonal_walk
+    launches, tonal_noise launches), mean step ms after `warmup`)."""
+    from odr_audioenc_tpu.host.mp2pack import Mp2Packer
+    steps, S = pcm.shape[:2]
+    packer = Mp2Packer(enc.cfg)
+    state = enc.init_state()
+    torch.cuda.synchronize()
+    per_stream = [[] for _ in range(S)]
+    step_s = []
+    kernels.launches = kernels.noise_launches = 0
+    for t in range(steps):
+        t0 = time.perf_counter()
+        state, out = enc.encode_step(state, pcm[t])
+        emitted = packer.emit({"wire": out["wire"].cpu().numpy()})
+        step_s.append(time.perf_counter() - t0)
+        for i, b in enumerate(emitted):
+            if b:
+                per_stream[i].append(b)
+    launches = (kernels.launches, kernels.noise_launches)
+    for i, b in enumerate(packer.finish()):
+        per_stream[i].append(b)
+    check(all(len(f) == steps for f in per_stream), "wrong frame count")
+    return per_stream, step_s, launches, 1000.0 * statistics.mean(step_s[warmup:])
+
+
+def encode_golden(name, dev, torch):
+    """The golden config `name` in f64 on `dev` through the shared host
+    packer: (bytes, wanted bytes, frames, seconds)."""
+    import gen_golden
+    from odr_audioenc_tpu.host.mp2pack import Mp2Packer
+    from odr_audioenc_tpu_torch import convert
+    from odr_audioenc_tpu_torch.mp2 import model
+    _, _, rate, bitrate, mode, psy, _ = gen_golden.CONFIGS[name]
+    frames, _ = gen_golden.make_input(name)
+    cfg = model.make_config([{"rate": rate, "bitrate": bitrate, "mode": mode}])
+    enc = model.Mp2Encoder(cfg, psy_model=psy, dtype=torch.float64, device=dev)
+    packer = Mp2Packer(cfg)
+    state, chunks = enc.init_state(), []
+    t0 = time.perf_counter()
+    for f in frames:
+        state, out = enc.encode_step(state, f[None])
+        chunks += packer.emit(convert.to_numpy(out))
+    chunks += packer.finish()
+    want = (ROOT / "tests" / "golden" / f"{name}.mp2").read_bytes()
+    return b"".join(chunks), want, len(frames), time.perf_counter() - t0
 
 
 def card_line():
@@ -117,10 +213,20 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {kind}", flush=True)
 
-    # ---- phase 1: build ------------------------------------------------------
-    t0 = time.perf_counter()
-    build.load("tonal_walk")
-    print(f"phase 1: built tonal_walk in {time.perf_counter() - t0:.2f} s", flush=True)
+    # ---- phase 1: build (one nvcc per source, started together) ---------------
+    def timed_build(name):
+        t0 = time.perf_counter()
+        build.load(name)
+        return time.perf_counter() - t0
+
+    names = ("tonal_walk", "tonal_noise")
+    with ThreadPoolExecutor(len(names)) as ex:
+        secs = dict(zip(names, ex.map(timed_build, names)))
+    for n in names:
+        log = build.library_path(n).with_suffix(".log").read_text()
+        usage = " | ".join(line.split("ptxas info    : ")[-1].strip()
+                           for line in log.splitlines() if "Used" in line or "spill" in line)
+        print(f"phase 1: built {n} in {secs[n]:.2f} s; ptxas: {usage}", flush=True)
 
     # ---- phase 2: kernel vs plain version ---------------------------------------
     def compare(power):
@@ -140,7 +246,7 @@ def main():
                                      device=dev))
     pcm1 = music_pcm(S_FULL, 2, seed=5)[1]                      # [S, 2, 1152]
     win = torch.as_tensor(pcm1[..., 128:].reshape(2 * S_FULL, 1024), device=dev)
-    power, _, _ = psycho1.power_spectrum(win.to(torch.float32) / 32768.0)
+    power, energy, _ = psycho1.power_spectrum(win.to(torch.float32) / 32768.0)
     cand, e = compare(power)
     err = max(err, e)
     k_ms = cuda_median_ms(lambda: psycho1_kernels.tonal_walk(power, cand), 50, torch)
@@ -148,26 +254,53 @@ def main():
     print(f"phase 2: tonal_walk == tonal_fast (masks equal, max |dpower'| {err:.3g} dB); "
           f"B={2 * S_FULL}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]", flush=True)
 
-    # ---- phase 3: exact path, golden bytes, on the card ----------------------------
-    import gen_golden
-    name = "music_48s_128_j_psy1"
-    frames, _ = gen_golden.make_input(name)
-    cfg1 = model.make_config([{"rate": 48000, "bitrate": 128, "mode": "j"}])
-    enc = model.Mp2Encoder(cfg1, psy_model=1, dtype=torch.float64, device=dev)
-    packer = Mp2Packer(cfg1)
-    state, chunks = enc.init_state(), []
-    t0 = time.perf_counter()
-    for f in frames:
-        state, out = enc.encode_step(state, f[None])
-        chunks += packer.emit(convert.to_numpy(out))
-    chunks += packer.finish()
-    want = (ROOT / "tests" / "golden" / f"{name}.mp2").read_bytes()
-    got = b"".join(chunks)
-    bad = [i for i, (a, b) in enumerate(zip(mp2parse.split_frames(got),
-                                            mp2parse.split_frames(want))) if a != b]
-    check(got == want, f"phase 3: golden {name} differs on the card (frames {bad[:5]})")
-    print(f"phase 3: golden {name} byte-exact on the card, f64, {len(frames)} frames "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    # ---- phase 2b: fused tonal+noise kernel vs plain version ----------------------
+    tabs48 = psycho1_fast.make_fast_tables(psycho1.make_psy1_tables(np.array([1])))
+    uniform = convert.tables_from_numpy(
+        {"static_noise_uniform": tabs48["static_noise_uniform"]}, dev,
+        torch.float32)["static_noise_uniform"]
+
+    def compare_noise(power, energy):
+        """tonal_noise vs tonal_noise_fast on one spectrum (see phase 2b above)."""
+        cand = psycho1.tonal_candidates(power)
+        pk, tk, nk = psycho1_kernels.tonal_noise(power, cand, energy, *uniform)
+        pp, tp, npl = psycho1_fast.tonal_noise_fast(power, cand, energy, *uniform)
+        torch.cuda.synchronize()
+        B = power.shape[0]
+        check(torch.equal(tk, tp), f"B={B}: tonal_noise tone members differ")
+        flips = int((nk != npl).sum())
+        check(flips <= B, f"B={B}: {flips} noise-member flips")
+        d = (pk - pp).abs()
+        e_both = float(d[nk & npl].max()) if bool((nk & npl).any()) else 0.0
+        e_neither = float(d[~nk & ~npl].max())
+        check(e_both < 1e-2, f"B={B}: power' on shared noise members differs by {e_both} dB")
+        check(e_neither < 1e-3, f"B={B}: power' off the noise members differs by {e_neither} dB")
+        return cand, flips, max(e_both, e_neither)
+
+    rwin = torch.as_tensor(rng.standard_normal((64, 1024)) * 0.1, dtype=torch.float32,
+                           device=dev)
+    rp, rn, _ = psycho1.power_spectrum(rwin)
+    _, flips64, err_n = compare_noise(rp, rn)
+    cand, flips, e = compare_noise(power, energy)
+    err_n = max(err_n, e)
+    kn_ms = cuda_median_ms(lambda: psycho1_kernels.tonal_noise(power, cand, energy, *uniform),
+                           50, torch)
+    pn_ms = cuda_median_ms(lambda: psycho1_fast.tonal_noise_fast(power, cand, energy, *uniform),
+                           20, torch)
+    print(f"phase 2b: tonal_noise vs tonal_noise_fast: tone members equal, noise-member "
+          f"flips {flips64} (B=64) and {flips} (B={2 * S_FULL}), max |dpower'| off the "
+          f"flips {err_n:.3g} dB; B={2 * S_FULL}: kernel {kn_ms:.4f} ms, plain "
+          f"{pn_ms:.4f} ms [{card}]", flush=True)
+
+    # ---- phase 3 / 3b: exact path, golden bytes, on the card -------------------------
+    for phase, name in (("3", "music_48s_128_j_psy1"), ("3b", "music_48s_128_j_psy0"),
+                        ("3b", "music_48s_128_j_psy2"), ("3b", "tones_48s_192_s_psy3")):
+        got, want, nf, secs_g = encode_golden(name, dev, torch)
+        bad = [i for i, (a, b) in enumerate(zip(mp2parse.split_frames(got),
+                                                mp2parse.split_frames(want))) if a != b]
+        check(got == want, f"phase {phase}: golden {name} differs on the card (frames {bad[:5]})")
+        print(f"phase {phase}: golden {name} byte-exact on the card, f64, {nf} frames "
+              f"in {secs_g:.2f} s", flush=True)
 
     # ---- phase 4: main path at full width -------------------------------------------
     steps = WARMUP + TIMED
@@ -176,33 +309,12 @@ def main():
     cfg = model.make_config(streams)
     enc = model.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device=dev,
                            pack_on_device="frame")
-    packer = Mp2Packer(cfg)
-    state = enc.init_state()
-    torch.cuda.synchronize()
-    per_stream = [[] for _ in range(S_FULL)]
-    psycho1_kernels.launches = 0
-    step_s = []
-    for t in range(steps):
-        t0 = time.perf_counter()
-        state, out = enc.encode_step(state, pcm[t])
-        emitted = packer.emit({"wire": out["wire"].cpu().numpy()})
-        step_s.append(time.perf_counter() - t0)
-        for i, b in enumerate(emitted):
-            if b:
-                per_stream[i].append(b)
-    launches = psycho1_kernels.launches
-    for i, b in enumerate(packer.finish()):
-        per_stream[i].append(b)
-    check(launches == steps, f"phase 4: tonal_walk launched {launches} times in {steps} steps")
-    check(all(len(f) == steps for f in per_stream), "phase 4: wrong frame count")
+    per_stream, _, (launches, n_l), step_ms = run_main_path(
+        enc, pcm, WARMUP, torch, psycho1_kernels)
+    check(launches == steps and n_l == 0,
+          f"phase 4: tonal_walk launched {launches} times, tonal_noise {n_l}, in {steps} steps")
     flat = [f for fs in per_stream for f in fs]
-    n_proc = min(8, os.cpu_count() or 1)
-    chunk = -(-len(flat) // (4 * n_proc))
-    with multiprocessing.get_context("spawn").Pool(n_proc) as pool:
-        ok = [x for part in pool.map(_parse_ok, [flat[i:i + chunk] for i in
-                                                 range(0, len(flat), chunk)]) for x in part]
-    check(len(ok) == S_FULL * steps and all(ok), "phase 4: a frame fails its CRC")
-    step_ms = 1000.0 * statistics.mean(step_s[WARMUP:])
+    check(all_crc_ok(flat), "phase 4: a frame fails its CRC")
     rt = S_FULL * FRAME_S / (step_ms / 1000.0)
 
     # the first 8 streams re-encoded on the CPU (the plain version)
@@ -259,11 +371,56 @@ def main():
           f"{over:.3%} of {d.size} beyond 0.5 dB ({flips} scf-min flips, {cand_flips} "
           f"tonal-candidate flips in {(steps - 1) * 2 * n8 * 512} bins)", flush=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "tonal_walk", "route": "cuda",
-        "source": "odr_audioenc_tpu_torch/csrc/tonal_walk.cu",
-        "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:140",
-        "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms}]}))
+    # ---- phase 4b: the main path with the fused tonal+noise kernel ------------------
+    fenc = model.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device=dev,
+                            pack_on_device="frame", psy_kernel="fused-noise")
+    fused_stream, _, (w_l, noise_launches), fstep_ms = run_main_path(
+        fenc, pcm, WARMUP, torch, psycho1_kernels)
+    check(noise_launches == steps and w_l == 0,
+          f"phase 4b: tonal_noise launched {noise_launches} times, tonal_walk {w_l}, "
+          f"in {steps} steps")
+    fflat = [f for fs in fused_stream for f in fs]
+    check(all_crc_ok(fflat), "phase 4b: a frame fails its CRC")
+    same_bytes = sum(a == b for a, b in zip(flat, fflat))
+    same_f = same_bytes + sum(
+        np.array_equal(mp2parse.parse_frame(a)["bit_alloc"], mp2parse.parse_frame(b)["bit_alloc"])
+        for a, b in zip(flat, fflat) if a != b)
+    check(same_f >= 0.9 * len(flat),
+          f"phase 4b: only {same_f}/{len(flat)} frames allocate as in phase 4")
+    frt = S_FULL * FRAME_S / (fstep_ms / 1000.0)
+    print(f"phase 4b: S={S_FULL} f32 fast path, psy_kernel=fused-noise: {len(fflat)} frames "
+          f"CRC-valid, {noise_launches} tonal_noise launches, 0 tonal_walk; step "
+          f"{fstep_ms:.3f} ms (mean of {TIMED}), {frt:.1f} streams x realtime "
+          f"(phase 4, tonal: {step_ms:.3f} ms) [{card}]; vs phase 4: {same_bytes} frames "
+          f"byte-equal, {same_f}/{len(flat)} with the same bit_alloc", flush=True)
+
+    # ---- phase 5: psy models 0, 2 and 3 at full width ---------------------------------
+    for psy, (warm, timed) in ((0, (2, 5)), (2, (2, 5)), (3, (1, 2))):
+        penc = model.Mp2Encoder(cfg, psy_model=psy, dtype=torch.float32, device=dev,
+                                pack_on_device="frame")
+        psy_stream, _, psy_l, psy_ms = run_main_path(penc, pcm[:warm + timed], warm, torch,
+                                                     psycho1_kernels)
+        psy_flat = [f for fs in psy_stream for f in fs]
+        check(all_crc_ok(psy_flat), f"phase 5: psy {psy}: a frame fails its CRC")
+        check(psy_l == (0, 0), f"phase 5: psy {psy} launched the psy-1 kernels {psy_l}")
+        print(f"phase 5: psy {psy}, S={S_FULL} f32, frame pack: {len(psy_flat)} frames "
+              f"CRC-valid; step {psy_ms:.3f} ms (mean of {timed}), "
+              f"{S_FULL * FRAME_S / (psy_ms / 1000.0):.1f} streams x realtime [{card}]",
+              flush=True)
+
+    left = live_children()
+    check(not left, f"child processes still running: {left}")
+    print(f"child processes left running: {len(left)}", flush=True)
+
+    print(json.dumps({"kernels": [
+        {"name": "tonal_walk", "route": "cuda",
+         "source": "odr_audioenc_tpu_torch/csrc/tonal_walk.cu",
+         "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:140",
+         "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms},
+        {"name": "tonal_noise", "route": "cuda",
+         "source": "odr_audioenc_tpu_torch/csrc/tonal_noise.cu",
+         "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:151",
+         "launches": noise_launches, "max_abs_err": err_n, "ms": kn_ms, "plain_ms": pn_ms}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

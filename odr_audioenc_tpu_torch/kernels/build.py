@@ -2,17 +2,22 @@
 
 Each `csrc/<name>.cu` has a plain C interface; it is compiled with
 `nvcc -shared` for sm_90a (Hopper) into `kernels/build/<name>-<hash>.so` and
-loaded with ctypes.  The hash is that of the source and the flags, so an
-edited kernel is rebuilt and an unchanged one is loaded as it is.  Nothing
-here runs at import time: the package imports on a machine without nvcc.
+loaded with ctypes.  The hash is that of the source, of every `csrc/*.cuh`
+header it includes (`#include "x.cuh"`, followed through the headers), and
+of the flags, so an edited kernel or shared header is rebuilt and an
+unchanged one is loaded as it is.  Nothing here runs at import time: the
+package imports on a machine without nvcc.
 
 Flags: -O3, no --use_fast_math (the psy-1 masks compare exact 10^(0.1x) and
 log10 values, which the fast intrinsics would move), and --fmad=false so
 that no a*b+c is contracted into an FMA the plain version does not make.
+ptxas reports each kernel's registers, shared memory and spills (-v); the
+report is kept beside the library as `<name>-<hash>.log`.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -21,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "kernels" / "build"
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+         "--fmad=false", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC"]
 
 _LOADED = {}
 
@@ -37,10 +42,27 @@ def nvcc_path():
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def sources(name):
+    """csrc/<name>.cu and the local headers it includes, in include order."""
+    out, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [SRC_DIR / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return out
+
+
 def library_path(name):
-    src = SRC_DIR / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def load(name):
@@ -56,6 +78,7 @@ def load(name):
         res = subprocess.run(cmd, capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{res.stdout}\n{res.stderr}")
+        so.with_suffix(".log").write_text(res.stdout + res.stderr)
         os.replace(tmp, so)
     lib = _LOADED[name] = ctypes.CDLL(str(so))
     return lib

@@ -17,7 +17,8 @@ from odr_audioenc_tpu import tables as T
 
 from .. import convert
 from ..device import default_device, default_dtype
-from . import allocate, binpack, framepack, polyphase, psycho1, psycho1_fast
+from . import (allocate, binpack, framepack, polyphase, psycho0, psycho1, psycho1_fast,
+               psycho2, psycho3, psycho4, psycho_n1)
 
 MODE_STEREO, MODE_JOINT, MODE_DUAL, MODE_MONO = 0, 1, 2, 3
 _MODE_OF = {"s": MODE_STEREO, "j": MODE_JOINT, "d": MODE_DUAL, "m": MODE_MONO}
@@ -105,25 +106,35 @@ _CFG_COLS = ["sblimit", "nch", "mode", "dab_ext", "adb_full", "tablenum", "low_r
              "version", "bitrate_idx", "sfreq_idx", "lg_frame", "dab_length"]
 
 
+PSY_MODELS = (-1, 0, 1, 2, 3, 4)
+
+
 class Mp2Encoder(nn.Module):
-    """Stream-batched MP2 encoder (psy model 1).  The config columns and the
-    psy-1 tables are registered buffers; `.to(device)` moves them."""
+    """Stream-batched MP2 encoder.  The config columns and the chosen psy
+    model's tables are registered buffers; `.to(device)` moves them."""
 
     def __init__(self, config: Mp2Config, psy_model=1, dtype=None, device=None,
-                 fast_psy=None, pack_on_device=False):
-        """dtype: float64 (exact path) or float32; defaults by device
-        (device.default_dtype).  fast_psy: the vectorised psy-1 with the
-        tonal-walk kernel instead of the exact scans; defaults to True for
-        float32.  pack_on_device: True serializes the sample section on
-        device (binpack.py); "frame" emits the complete frame bytes
-        (framepack.py) as one uint8 "wire" buffer per stream."""
+                 fast_psy=None, pack_on_device=False, psy_kernel="tonal"):
+        """psy_model: -1, 0, 1, 2, 3 or 4 (the reference's --dabpsy; 2, 3
+        and 4 need one sample rate per batch).  dtype: float64 (exact path)
+        or float32; defaults by device (device.default_dtype).  fast_psy:
+        the vectorised psy-1 with the CUDA kernels instead of the exact
+        scans; defaults to True for float32.  psy_kernel: the psy-1 fast
+        path's kernel, "tonal" (the tonal walk, then the torch noise
+        labelling) or "fused-noise" (tonal walk and noise labelling in one
+        kernel), the JAX encoder's use_pallas choice.  pack_on_device: True
+        serializes the sample section on device (binpack.py); "frame" emits
+        the complete frame bytes (framepack.py) as one uint8 "wire" buffer
+        per stream."""
         super().__init__()
-        if psy_model != 1:
-            raise NotImplementedError(
-                f"psy model {psy_model} is not ported yet (ROADMAP.md, queue 1)")
+        if psy_model not in PSY_MODELS:
+            raise NotImplementedError(f"psy model {psy_model}")
+        if psy_kernel not in ("tonal", "fused-noise"):
+            raise ValueError(f"psy_kernel must be 'tonal' or 'fused-noise', not {psy_kernel!r}")
         device = torch.device(device) if device is not None else default_device()
         self.cfg = config
         self.psy_model = psy_model
+        self.psy_kernel = psy_kernel
         self.dtype = dtype if dtype is not None else default_dtype(device)
         self.fast_psy = (self.dtype != torch.float64) if fast_psy is None else fast_psy
         self.pack_on_device = pack_on_device
@@ -137,21 +148,45 @@ class Mp2Encoder(nn.Module):
         self.register_buffer("cfg_nbal", torch.as_tensor(
             framepack.nbal_rows(config).astype(np.int64), device=device))
 
-        tabs = psycho1.make_psy1_tables(np.repeat(config.psy_rate_idx, 2))
-        if self.fast_psy:
-            tabs.update(psycho1_fast.make_fast_tables(tabs))
+        tabs = self._make_psy_tables()
+        # non-tensor entries (psy-2/4 `ncb`, psy-3 band bounds) stay on the host
+        self._psy_consts = {k: tabs.pop(k) for k in ("ncb", "cbandindex") if k in tabs}
         tabs = convert.tables_from_numpy(tabs, device, self.dtype)
         static_mm = tabs.pop("static_mm", None)
         self._mm_ss = None
         if static_mm is not None:
             mask, tail, j_idx, has_match, self._mm_ss = static_mm
             tabs.update(mm_mask=mask, mm_tail=tail, mm_j=j_idx, mm_has=has_match)
+        noise_uniform = tabs.pop("static_noise_uniform", None)
+        if noise_uniform is not None:
+            tabs.update(zip(("nu_bmt", "nu_base", "nu_span"), noise_uniform))
         self._psy_keys = list(tabs)
         for k, v in tabs.items():
             self.register_buffer("psy_" + k, v)
         # 44.1k-family padding-slot lag, advanced host-side in f64 exactly as
         # the reference's static struct (availbits.c:27-62)
         self.pad_lag = np.zeros(config.n_streams, np.float64)
+
+    def _make_psy_tables(self):
+        """The chosen psy model's tables (numpy), as the JAX encoder builds
+        them (odr_audioenc_tpu/mp2/model.py:126-161)."""
+        cfg = self.cfg
+        rates_hz = [1000.0 * T.S_FREQ_KHZ[v][si] for v, si in zip(cfg.version, cfg.sfreq_idx)]
+        if self.psy_model == 1:
+            tabs = psycho1.make_psy1_tables(np.repeat(cfg.psy_rate_idx, 2))
+            if self.fast_psy:
+                tabs.update(psycho1_fast.make_fast_tables(tabs))
+            return tabs
+        if self.psy_model == 0:
+            return {"ath_min": np.stack([T.psy0_ath_min(r) for r in rates_hz])}
+        if self.psy_model == -1:
+            return {}
+        if len(set(rates_hz)) != 1:
+            raise ValueError(f"psy model {self.psy_model} requires a homogeneous sample "
+                             "rate per encoder batch")
+        make = {2: psycho2.make_psy2_tables, 3: psycho3.make_psy3_tables,
+                4: psycho4.make_psy4_tables}[self.psy_model]
+        return make(rates_hz[0])
 
     @property
     def device(self):
@@ -165,24 +200,47 @@ class Mp2Encoder(nn.Module):
         if self._mm_ss is not None:
             tabs["static_mm"] = (tabs.pop("mm_mask"), tabs.pop("mm_tail"),
                                  tabs.pop("mm_j"), tabs.pop("mm_has"), self._mm_ss)
+        if "nu_bmt" in tabs:
+            tabs["static_noise_uniform"] = (tabs.pop("nu_bmt"), tabs.pop("nu_base"),
+                                            tabs.pop("nu_span"))
+        tabs.update(self._psy_consts)
         return tabs
 
     def init_state(self):
-        return {"hist": torch.zeros((self.cfg.n_streams, 2, 480), dtype=self.dtype,
-                                    device=self.device)}
+        S = self.cfg.n_streams
+        state = {"hist": torch.zeros((S, 2, 480), dtype=self.dtype, device=self.device)}
+        if self.psy_model in (2, 4):
+            state["psy2"] = psycho2.init_psy2_state(2 * S, self.dtype, self.device)
+        return state
+
+    def _state_rows(self, idx, device):
+        """Stream rows idx and their channel-major psy-2 rows [2 idx, 2 idx + 1]."""
+        idx = np.asarray(idx)
+        idx2 = np.stack([2 * idx, 2 * idx + 1], 1).reshape(-1)
+        return torch.as_tensor(idx, device=device), torch.as_tensor(idx2, device=device)
 
     def take_state(self, state, idx):
         """Per-stream state rows (stream churn: a station moving to a rebuilt
-        batch carries its state so its bitstream continues exactly)."""
-        idx = torch.as_tensor(np.asarray(idx), device=state["hist"].device)
-        return {"hist": state["hist"][idx]}
+        batch carries its state so its bitstream continues exactly).  The
+        psy-2/4 leaves are channel-major [2S, ...]."""
+        i, i2 = self._state_rows(idx, state["hist"].device)
+        out = {"hist": state["hist"][i]}
+        if self.psy_model in (2, 4):
+            out["psy2"] = {k: v[i2] for k, v in state["psy2"].items()}
+        return out
 
     def put_state(self, state, idx, rows):
         """Write rows (from take_state) at stream indices idx."""
-        idx = torch.as_tensor(np.asarray(idx), device=state["hist"].device)
+        i, i2 = self._state_rows(idx, state["hist"].device)
         hist = state["hist"].clone()
-        hist[idx] = rows["hist"].to(hist.dtype)
-        return dict(state, hist=hist)
+        hist[i] = rows["hist"].to(hist.dtype)
+        state = dict(state, hist=hist)
+        if self.psy_model in (2, 4):
+            psy2 = {k: v.clone() for k, v in state["psy2"].items()}
+            for k, v in psy2.items():
+                v[i2] = rows["psy2"][k].to(v.dtype)
+            state["psy2"] = psy2
+        return state
 
     def next_padding(self):
         """Advance the padding-slot lag one frame; returns extra slots [S]
@@ -219,11 +277,32 @@ class Mp2Encoder(nn.Module):
         j_sample = allocate.combine_lr(sb_sample)               # [S,3,12,32]
         j_scale = torch.where(sbmask[:, None, :], allocate.scalefactor_calc(j_sample), 0)
 
-        window = torch.cat([state["hist"][..., 288:], frame[..., :832]],
-                           dim=-1).reshape(S * 2, 1024)
-        psy_fn = psycho1_fast.psycho_1_fast if self.fast_psy else psycho1.psycho_1
-        smr = psy_fn(window, scale_max.reshape(S * 2, 32), self.psy_tabs(),
-                     self._col("low_rate").repeat_interleave(2)).reshape(S, 2, 32)
+        tabs = self.psy_tabs()
+        low2 = self._col("low_rate").repeat_interleave(2)
+        if self.psy_model in (1, 3):     # the 1024-sample FFT window of models 1 and 3
+            window = torch.cat([state["hist"][..., 288:], frame[..., :832]],
+                               dim=-1).reshape(S * 2, 1024)
+        new_state = {"hist": hist}
+        if self.psy_model == 1:
+            if self.fast_psy:
+                smr = psycho1_fast.psycho_1_fast(window, scale_max.reshape(S * 2, 32), tabs,
+                                                 low2, use_kernel=self.psy_kernel)
+            else:
+                smr = psycho1.psycho_1(window, scale_max.reshape(S * 2, 32), tabs, low2)
+            smr = smr.reshape(S, 2, 32)
+        elif self.psy_model == 0:
+            smr = psycho0.psycho_0(sf_index, tabs["ath_min"][:, None, :])
+        elif self.psy_model == -1:
+            smr = psycho_n1.psycho_n1(S, dtype, frame.device)
+        elif self.psy_model in (2, 4):
+            # model 4 shares model 2's runtime with its own tables; both
+            # window the raw, unscaled samples
+            raw = pcm.to(dtype).reshape(S * 2, 1152)
+            smr, new_state["psy2"] = psycho2.psycho_2(raw, state["psy2"], tabs)
+            smr = smr.reshape(S, 2, 32)
+        else:
+            smr = psycho3.psycho_3(window, scale_max.reshape(S * 2, 32), tabs,
+                                   low2).reshape(S, 2, 32)
 
         sf_adj, scfsi = allocate.sf_transmission_pattern(sf_index)
         sf_adj = torch.where(sbmask[:, None, None, :], sf_adj, 0)
@@ -243,7 +322,6 @@ class Mp2Encoder(nn.Module):
             smr, scfsi, ft, sblimit, nch, jsbound, adb)
         sbband = allocate.quantize(sf_adj, sb_sample, j_scale, j_sample, bit_alloc, ft,
                                    sblimit, nch, jsbound)
-        new_state = {"hist": hist}
 
         if self.pack_on_device == "frame":
             cfgd = {k: self._col(k) for k in _CFG_COLS}

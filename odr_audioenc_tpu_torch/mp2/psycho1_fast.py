@@ -6,7 +6,10 @@ as data-parallel passes:
 
   tonal labeling  -> bounded relaxation; on CUDA the hand-written kernel
                      (psycho1_kernels.tonal_walk), on the CPU tonal_fast
-  noise labeling  -> independent per-critical-band reductions
+  noise labeling  -> independent per-critical-band reductions; with
+                     use_kernel="fused-noise" fused with the tonal walk in
+                     one CUDA kernel (psycho1_kernels.tonal_noise), on the
+                     CPU tonal_noise_fast
   0.5-bark merge  -> bounded pairwise relaxation over compacted maskers
   thresholds      -> linear-domain accumulation over compacted maskers
 
@@ -168,6 +171,18 @@ def noise_fast(power, is_tone, energy, band_matrix, centre_base, centre_span):
     return torch.where(member, won, power), member
 
 
+def tonal_noise_fast(power, cand, energy, bmt, base, span):
+    """The plain version of the fused tonal+noise CUDA kernel in
+    psycho1_kernels: tonal_fast, then noise_fast on the uniform band
+    geometry (one sample rate per batch).  bmt [512, 32] is the transposed,
+    zero-padded band matrix; base/span [32] the bands' first bin and width
+    (span 0 = no band).  Returns (power', tone member, noise member)."""
+    pw, tone_m, typ = tonal_fast(power, cand)
+    B = power.shape[0]
+    pw, noise_m = noise_fast(pw, typ, energy, bmt.T, base.expand(B, -1), span.expand(B, -1))
+    return pw, tone_m, noise_m
+
+
 def compact_maskers(member, power, bark_of_bin, kmax):
     """Compact the sparse masker set to its first `kmax` members (bin
     order).  Returns (m [B,K] valid, x [B,K] dB, bk [B,K] bark at the masker
@@ -246,23 +261,31 @@ def minimum_mask_fast(ltg_x, hear_line, static_mm):
 
 
 def psycho_1_fast(samples, scale_max, psy_tabs, low_rate, use_kernel="tonal"):
-    """psycho1.psycho_1 on the fast path.  The tonal walk goes through
-    psycho1_kernels.tonal_walk: the CUDA kernel for a CUDA tensor, its
-    plain version for a CPU tensor.  use_kernel="fused-noise" names the
-    JAX package's fused tonal+noise kernel, which is not ported yet."""
-    if use_kernel == "fused-noise":
-        raise NotImplementedError(
-            "the fused tonal+noise kernel is not ported (ROADMAP.md, queue 2, kernel 2)")
-    if use_kernel != "tonal":
+    """psycho1.psycho_1 on the fast path.  use_kernel="tonal" runs the
+    tonal walk through psycho1_kernels.tonal_walk and the noise labelling as
+    torch ops; "fused-noise" runs both through psycho1_kernels.tonal_noise.
+    Each wrapper launches its CUDA kernel for a CUDA tensor and takes its
+    plain version for a CPU tensor.  The fused kernel needs the uniform
+    band geometry (`static_noise_uniform`), which exists only when every
+    row has the same sample rate; for a mixed batch it is None, and
+    "fused-noise" runs the tonal walk and then noise_fast, as the JAX
+    package dispatches on that geometry."""
+    if use_kernel not in ("tonal", "fused-noise"):
         raise ValueError(f"use_kernel must be 'tonal' or 'fused-noise', not {use_kernel!r}")
     dtype = samples.dtype
     power, energy, spike = power_spectrum(samples)
     cand = tonal_candidates(power)
-    pw, tone_m, tone_typ = psycho1_kernels.tonal_walk(
-        power.float() if power.is_cuda else power, cand)
-    power = pw.to(dtype)
-    power, noise_m = noise_fast(power, tone_typ, energy, psy_tabs["band_matrix"],
-                                psy_tabs["centre_base"], psy_tabs["centre_span"])
+    # the CUDA kernels take f32 (an f64 run on the card rounds here)
+    to_kernel = (lambda t: t.float()) if power.is_cuda else (lambda t: t)
+    uniform = psy_tabs.get("static_noise_uniform")
+    if use_kernel == "fused-noise" and uniform is not None:
+        pw, tone_m, noise_m = psycho1_kernels.tonal_noise(to_kernel(power), cand,
+                                                          to_kernel(energy), *uniform)
+        power = pw.to(dtype)
+    else:
+        pw, tone_m, tone_typ = psycho1_kernels.tonal_walk(to_kernel(power), cand)
+        power, noise_m = noise_fast(pw.to(dtype), tone_typ, energy, psy_tabs["band_matrix"],
+                                    psy_tabs["centre_base"], psy_tabs["centre_span"])
     hear_of_bin = psy_tabs["hear_of_bin"]
     power, tone_m = subsample(power, tone_m, hear_of_bin)
     power, noise_m = subsample(power, noise_m, hear_of_bin)

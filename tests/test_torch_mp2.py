@@ -187,17 +187,69 @@ def test_take_put_state_matches_jax():
                                   np.asarray(jput["hist"]))
 
 
+def test_fused_noise_encoder_matches_jax_and_tonal():
+    """psy_kernel="fused-noise" end to end, S=2, 12 frames.  f64 fast path:
+    every integer output equals the JAX fast path's (whose noise labelling
+    is the unfused noise_fast; in f64 the band sums' order moves no
+    centre here).  f32 frame pack: every frame CRC-valid, and >= 90% of
+    frames allocate as the port's tonal path does."""
+    nf = 12
+    pcm = _two_streams(nf)
+    streams = [{"rate": 48000, "bitrate": 128, "mode": "j"}] * 2
+    jcfg, tcfg = jmodel.make_config(streams), tmodel.make_config(streams)
+    jenc = jmodel.Mp2Encoder(jcfg, psy_model=1, dtype=jnp.float64, fast_psy=True)
+    fused64 = tmodel.Mp2Encoder(tcfg, psy_model=1, dtype=torch.float64, device="cpu",
+                                fast_psy=True, psy_kernel="fused-noise")
+    js, ts = jenc.init_state(), fused64.init_state()
+    for fi in range(nf):
+        js, jo = jenc.encode_step(js, pcm[fi])
+        ts, to = fused64.encode_step(ts, pcm[fi])
+        to = convert.to_numpy(to)
+        for k, v in jo.items():
+            if k != "smr":
+                np.testing.assert_array_equal(to[k].astype(np.int64),
+                                              np.asarray(v).astype(np.int64),
+                                              err_msg=f"frame {fi} {k}")
+    encs = [tmodel.Mp2Encoder(tcfg, psy_model=1, dtype=torch.float32, device="cpu",
+                              pack_on_device="frame", psy_kernel=k)
+            for k in ("tonal", "fused-noise")]
+    states = [e.init_state() for e in encs]
+    packers = [Mp2Packer(tcfg) for _ in encs]
+    out = [[b"", b""], [b"", b""]]
+    for fi in range(nf):
+        for j, enc in enumerate(encs):
+            states[j], o = enc.encode_step(states[j], pcm[fi])
+            for i, c in enumerate(packers[j].emit({"wire": o["wire"].numpy()})):
+                out[j][i] += c
+    for j in range(2):
+        for i, c in enumerate(packers[j].finish()):
+            out[j][i] += c
+    same, total = 0, 0
+    for tonal, fused in zip(*out):
+        pt = [mp2parse.parse_frame(f) for f in mp2parse.split_frames(tonal)]
+        pf = [mp2parse.parse_frame(f) for f in mp2parse.split_frames(fused)]
+        assert len(pf) == nf and all(p["crc_ok"] for p in pf)
+        same += sum(np.array_equal(a["bit_alloc"], b["bit_alloc"]) for a, b in zip(pt, pf))
+        total += nf
+    assert same >= 0.9 * total, f"{same}/{total} frames allocate as the tonal path"
+
+
 def test_launch_count_and_device_policy():
-    """On the CPU the tonal walk takes its plain version and counts no
-    launch; other psy models and the fused kernel are not ported."""
+    """On the CPU both psy-1 kernels take their plain versions and count no
+    launch; every psy model of the JAX encoder constructs, and an unknown
+    model or psy-1 kernel is refused."""
     cfg = tmodel.make_config([{"rate": 48000, "bitrate": 128, "mode": "j"}])
-    enc = tmodel.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device="cpu",
-                            pack_on_device="frame")
-    before = psycho1_kernels.launches
-    state, out = enc.encode_step(enc.init_state(), frames_of(music_like(1))[:1])
-    assert psycho1_kernels.launches == before
-    assert out["wire"].shape == (1, enc.frame_bytes + 6)
-    assert out["wire"].dtype == torch.uint8
+    for kernel in ("tonal", "fused-noise"):
+        enc = tmodel.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device="cpu",
+                                pack_on_device="frame", psy_kernel=kernel)
+        before = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+        state, out = enc.encode_step(enc.init_state(), frames_of(music_like(1))[:1])
+        assert (psycho1_kernels.launches, psycho1_kernels.noise_launches) == before
+        assert out["wire"].shape == (1, enc.frame_bytes + 6)
+        assert out["wire"].dtype == torch.uint8
     for psy in (0, 2, 3, 4, -1):
-        with pytest.raises(NotImplementedError):
-            tmodel.Mp2Encoder(cfg, psy_model=psy, device="cpu")
+        assert tmodel.Mp2Encoder(cfg, psy_model=psy, device="cpu").psy_model == psy
+    with pytest.raises(NotImplementedError):
+        tmodel.Mp2Encoder(cfg, psy_model=5, device="cpu")
+    with pytest.raises(ValueError):
+        tmodel.Mp2Encoder(cfg, psy_model=1, device="cpu", psy_kernel="pallas")

@@ -65,6 +65,40 @@ def test_tonal_walk_rejects_other_devices():
         psycho1_kernels.tonal_walk(p, torch.zeros(2, 512, dtype=torch.bool, device="meta"))
 
 
+def test_tonal_noise_rejects_other_devices():
+    """The fused wrapper likewise: meta tensors raise, before any build."""
+    from odr_audioenc_tpu_torch.mp2 import psycho1_kernels
+    p = torch.zeros(2, 512, device="meta")
+    geometry = (torch.zeros(512, 32, device="meta"),
+                torch.zeros(32, dtype=torch.int64, device="meta"),
+                torch.zeros(32, dtype=torch.int64, device="meta"))
+    before = psycho1_kernels.noise_launches
+    with pytest.raises(ValueError):
+        psycho1_kernels.tonal_noise(p, torch.zeros(2, 512, dtype=torch.bool, device="meta"),
+                                    p, *geometry)
+    assert psycho1_kernels.noise_launches == before
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A kernel's library is keyed by its source and by every csrc/*.cuh it
+    includes (through other headers too): editing a shared header gives
+    another library path, so a stale build is never loaded."""
+    from odr_audioenc_tpu_torch.kernels import build
+    assert [p.name for p in build.sources("tonal_noise")] == ["tonal_noise.cu", "psy1_tonal.cuh"]
+    (tmp_path / "k.cu").write_text('#include "a.cuh"\n#include <stdint.h>\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("#define B 1\n")
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    assert [p.name for p in build.sources("k")] == ["k.cu", "a.cuh", "b.cuh"]
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("#define B 2\n")
+    second = build.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// edited\n')
+    assert build.library_path("k") not in (first, second)
+
+
 def _table_makers():
     from odr_audioenc_tpu import bitpack as jbp
     from odr_audioenc_tpu.mp2 import allocate as ja, framepack as jfp, model as jm
@@ -73,6 +107,10 @@ def _table_makers():
     from odr_audioenc_tpu_torch.mp2 import allocate as ta, framepack as tfp, model as tm
     from odr_audioenc_tpu_torch.mp2 import polyphase as tpoly, psycho1 as tp
     from odr_audioenc_tpu_torch.mp2 import psycho1_fast as tf
+    from odr_audioenc_tpu.mp2 import psycho2 as jp2, psycho3 as jp3, psycho4 as jp4
+    from odr_audioenc_tpu.mp2 import psycho_n1 as jpn1
+    from odr_audioenc_tpu_torch.mp2 import psycho2 as tp2, psycho3 as tp3, psycho4 as tp4
+    from odr_audioenc_tpu_torch.mp2 import psycho_n1 as tpn1
 
     streams = [{"rate": r, "bitrate": b, "mode": m, "pad_len": p} for r, b, m, p in
                [(48000, 128, "j", 0), (44100, 160, "s", 16), (24000, 64, "m", 0),
@@ -102,7 +140,22 @@ def _table_makers():
                               tfp.nbal_rows(tm.make_config(streams))),
         "_PAT_tables": lambda: ((ja._PATTERNS, ja._PAT_CODE, ja._PAT_LUT),
                                 (ta._PATTERNS, ta._PAT_CODE, ta._PAT_LUT)),
+        "make_psy2_tables": lambda: (
+            [jp2.make_psy2_tables(r) for r in _PSY2_RATES],
+            [tp2.make_psy2_tables(r) for r in _PSY2_RATES]),
+        "make_psy4_tables": lambda: (
+            [jp4.make_psy4_tables(r) for r in _PSY2_RATES],
+            [tp4.make_psy4_tables(r) for r in _PSY2_RATES]),
+        "make_psy3_tables": lambda: (
+            [jp3.make_psy3_tables(r) for r in _PSY2_RATES],
+            [tp3.make_psy3_tables(r) for r in _PSY2_RATES]),
+        "psy3_run_and_subset": lambda: ((jp3._RUN3, jp3.FREQ_SUBSET),
+                                        (tp3._RUN3, tp3.FREQ_SUBSET)),
+        "SNRDEF": lambda: (jpn1.SNRDEF, tpn1.SNRDEF),
     }
+
+
+_PSY2_RATES = (48000.0, 44100.0, 32000.0, 24000.0, 22050.0, 16000.0)
 
 
 def _assert_same(a, b, where=""):

@@ -1,8 +1,10 @@
 """The port's psy model 1 against the JAX package's: the exact path stage by
 stage (bitwise from a shared spectrum), the whole SMR, the fast path's
-stages, and the tonal walk's plain version against JAX's `tonal_fast` and
+stages, the tonal walk's plain version against JAX's `tonal_fast` and
 against the Pallas kernel run in interpret mode (the recipe of
-test_fast_path.py:51-71)."""
+test_fast_path.py:51-71), and the fused tonal+noise kernel's plain version
+against `tonal_noise_pallas` in interpret mode and against JAX's
+`tonal_fast` + `noise_fast` (the bounds of test_fast_path.py:74-114)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -184,14 +186,82 @@ def test_noise_and_masker_stages_match_jax():
     np.testing.assert_allclose(mt.numpy(), _np(mj), rtol=0, atol=1e-9)
 
 
+def _noise_inputs(S=16, seed=3):
+    """The recipe of test_fast_path.py:74-114: 2S rows of random windows at
+    48 kHz through the f32 spectrum; the uniform band geometry of that rate."""
+    tabs = jp.make_psy1_tables(np.array([1] * (2 * S)))
+    tabs.update(jf.make_fast_tables(tabs))
+    rng = np.random.default_rng(seed)
+    win = (rng.standard_normal((2 * S, 1024)) * 0.1).astype(np.float32)
+    pj, ej, _ = jp.power_spectrum(jnp.asarray(win), jnp.float32)
+    power, energy = _np(pj), _np(ej)
+    cand = tp.tonal_candidates(torch.as_tensor(power)).numpy()
+    return tabs, power, energy, cand
+
+
+def _assert_noise_close(pw, tone_m, noise_m, ref_pw, ref_tone, ref_noise, S):
+    """Tone members equal; at most 2S noise-member flips (a centre is
+    base + trunc(index * span), with no rounding margin, so f32 sums in
+    another order can move it by one bin); power' within 1e-2 dB where both
+    have a noise member, and 1e-3 dB where neither has one."""
+    np.testing.assert_array_equal(tone_m, ref_tone)
+    flips = int((noise_m != ref_noise).sum())
+    assert flips <= 2 * S, f"noise member mismatch at {flips} bins"
+    d = np.abs(pw - ref_pw)
+    both, neither = noise_m & ref_noise, ~noise_m & ~ref_noise
+    assert float(d[both].max(initial=0.0)) < 1e-2
+    assert float(d[neither].max(initial=0.0)) < 1e-3
+
+
+def test_tonal_noise_cpu_matches_pallas_interpret():
+    """The fused wrapper on CPU tensors (its plain version, no launch)
+    against the TPU kernel itself, run by Pallas in interpret mode."""
+    S = 16
+    tabs, power, energy, cand = _noise_inputs(S)
+    bmt, base32, span32 = tabs["static_noise_uniform"]
+    pj, tj, nj = psycho1_pallas.tonal_noise_pallas(
+        jnp.asarray(power), jnp.asarray(cand), jnp.asarray(energy), jnp.asarray(bmt),
+        jnp.asarray(base32), jnp.asarray(span32), interpret=True)
+    uniform = convert.tables_from_numpy(tabs, "cpu", torch.float32)["static_noise_uniform"]
+    before = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+    pt, tt, nt = psycho1_kernels.tonal_noise(torch.as_tensor(power), torch.as_tensor(cand),
+                                             torch.as_tensor(energy), *uniform)
+    assert (psycho1_kernels.launches, psycho1_kernels.noise_launches) == before
+    _assert_noise_close(pt.numpy(), tt.numpy(), nt.numpy(), _np(pj), _np(tj), _np(nj), S)
+
+
+def test_tonal_noise_fast_matches_jax_plain():
+    """tonal_noise_fast against JAX's tonal_fast followed by noise_fast
+    (the pipeline the fused TPU kernel replaces), from the same inputs."""
+    S = 16
+    tabs, power, energy, cand = _noise_inputs(S, seed=4)
+    a = _J_TONAL(jnp.asarray(power), jnp.asarray(cand), jnp.float32)
+    na = _J_NOISE(a[0], a[2], jnp.asarray(energy), tabs["band_matrix"], tabs["centre_base"],
+                  tabs["centre_span"], jnp.float32)
+    uniform = convert.tables_from_numpy(tabs, "cpu", torch.float32)["static_noise_uniform"]
+    pt, tt, nt = tf.tonal_noise_fast(torch.as_tensor(power), torch.as_tensor(cand),
+                                     torch.as_tensor(energy), *uniform)
+    _assert_noise_close(pt.numpy(), tt.numpy(), nt.numpy(), _np(na[0]), _np(a[1]),
+                        _np(na[1]), S)
+
+
 def test_fused_noise_is_not_ported():
-    _, tt = _tables(fast=True, rate_idx=[1, 1, 1, 1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tf.psycho_1_fast(torch.zeros(4, 1024), torch.ones(4, 32), tt,
-                         torch.zeros(4, dtype=torch.bool), use_kernel="fused-noise")
+    """use_kernel="fused-noise" runs: with the uniform geometry through the
+    fused wrapper (on the CPU its plain version, so the SMR equals the
+    tonal path's up to the band sums' matmul shape), and for a mixed-rate
+    batch, which has no uniform geometry, as the tonal walk + noise_fast,
+    exactly as use_kernel="tonal".  Another name raises."""
+    win = torch.as_tensor(_windows(seed=9)).float()
+    scale = torch.as_tensor(np.random.default_rng(5).uniform(1e-5, 0.5, (4, 32))).float()
+    low = torch.zeros(4, dtype=torch.bool)
+    for rate_idx, atol in (([1, 1, 1, 1], 1e-3), (RATE_IDX, 0.0)):
+        _, tt = _tables(fast=True, dtype=torch.float32, rate_idx=rate_idx)
+        assert (tt.get("static_noise_uniform") is None) == (rate_idx == RATE_IDX)
+        fused = tf.psycho_1_fast(win, scale, tt, low, use_kernel="fused-noise")
+        tonal = tf.psycho_1_fast(win, scale, tt, low, use_kernel="tonal")
+        np.testing.assert_allclose(fused.numpy(), tonal.numpy(), rtol=0, atol=atol)
     with pytest.raises(ValueError):
-        tf.psycho_1_fast(torch.zeros(4, 1024), torch.ones(4, 32), tt,
-                         torch.zeros(4, dtype=torch.bool), use_kernel="pallas")
+        tf.psycho_1_fast(win, scale, tt, low, use_kernel="pallas")
 
 
 # the string condition is evaluated when the test runs, not at import
@@ -211,3 +281,24 @@ def test_tonal_walk_kernel_matches_plain_on_card():
         pp, mp, yp = tf.tonal_fast(p, c)
         assert torch.equal(mk, mp) and torch.equal(yk, yp)
         assert float((pk - pp).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA card")
+def test_tonal_noise_kernel_matches_plain_on_card():
+    """The fused CUDA kernel against its plain version on the card (B=32
+    random-window rows and a ragged B=3): the bounds of the CPU tests, one
+    launch per call, no tonal_walk launch."""
+    for S, rows in ((16, None), (16, 3)):
+        tabs, power, energy, cand = _noise_inputs(S, seed=S)
+        if rows:
+            power, energy, cand = power[:rows], energy[:rows], cand[:rows]
+        dev = [torch.as_tensor(a, device="cuda") for a in (power, cand, energy)]
+        uniform = convert.tables_from_numpy(tabs, "cuda", torch.float32)["static_noise_uniform"]
+        before = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+        got = psycho1_kernels.tonal_noise(*dev, *uniform)
+        torch.cuda.synchronize()
+        assert (psycho1_kernels.launches, psycho1_kernels.noise_launches) == \
+            (before[0], before[1] + 1)
+        ref = tf.tonal_noise_fast(*dev, *uniform)
+        _assert_noise_close(*(t.cpu().numpy() for t in got + ref), S)
