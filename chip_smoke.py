@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MP2 main path on one CUDA card and check it.
+"""Drive the PyTorch port's MP2 and DAB+ AAC-LC main paths on one CUDA card
+and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card):
 
@@ -36,8 +37,23 @@ Phases (any failure exits non-zero and prints no result):
      and tonal_walk never, >= 90% of frames with phase 4's allocation.
   5. psy models 0, 2 and 3 on the f32 path at S=2048 (frame pack, a few
      steps each): every frame CRC-valid, step time printed.
+  6. DAB+ AAC-LC main path at full width: 48 kHz stereo 96 kbps (subch 12,
+     the lc_96 shape), S=2048 streams, f32, music-like PCM at per-stream
+     offsets; 2 warm-up + 5 timed superframes through
+     encode_superframes(pack=False) and pack_superframes(add_rs=True) with
+     the native host packer (which must have built).  Every superframe is
+     120*subch bytes and passes RS, the firecode and validate_superframe;
+     on the first 8 streams every AU's counted bits equal its written length
+     + 10, and their f32 re-encode on the CPU makes the same decisions
+     (gains, books, window sequence) in >= 90% of AUs.  Prints the device
+     step and the host pack separately, streams x realtime and the
+     crash-recovery syncs per superframe.  No hand-written kernel is on this
+     path: both launch counts must stay 0.
+  6b. the same configuration in f64 on the card at S=8 for 3 superframes
+     against the f64 port on the CPU: >= 99% of AUs with identical integer
+     decisions and every superframe valid.
 
-Every main-path run (4, 4b, 5) sets the launch counts to 0 just before it
+Every main-path run (4, 4b, 5, 6) sets the launch counts to 0 just before it
 and reads them just after.  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
@@ -75,15 +91,27 @@ def _parse_ok(frames):
     return [bool(mp2parse.parse_frame(f)["crc_ok"]) for f in frames]
 
 
-def all_crc_ok(flat):
-    """CRC check of every frame, parsed by child interpreters (one per core,
-    at most 8), each of which is waited for.  No multiprocessing pool: its
+def _superframe_ok(frames):
+    """DAB+ superframes: 120*subch bytes, RS, firecode and AU CRCs valid."""
+    import numpy as np
+    from odr_audioenc_tpu.fec.rs import superframe_check_rs
+    from odr_audioenc_tpu.host.aacpack import firecode_crc
+    from odr_audioenc_tpu.host.dabplus_parse import validate_superframe
+    return [len(f) % 120 == 0 and bool(superframe_check_rs(np.frombuffer(f, np.uint8)))
+            and firecode_crc(f[2:11]) == (f[0] << 8 | f[1]) and validate_superframe(f)[0]
+            for f in frames]
+
+
+def all_crc_ok(flat, checker="_parse_ok"):
+    """CRC check of every frame (`checker`: a function of this script
+    taking a list of frames), run by child interpreters (one per core, at
+    most 8), each of which is waited for.  No multiprocessing pool: its
     resource-tracker process would outlive the script."""
     n_proc = min(8, os.cpu_count() or 1)
     chunk = max(1, -(-len(flat) // n_proc))
     code = (f"import pickle, sys; sys.path[:0] = [{str(ROOT)!r}]; "
-            "from chip_smoke import _parse_ok; "
-            "sys.stdout.buffer.write(pickle.dumps(_parse_ok(pickle.load(sys.stdin.buffer))))")
+            f"from chip_smoke import {checker}; "
+            f"sys.stdout.buffer.write(pickle.dumps({checker}(pickle.load(sys.stdin.buffer))))")
 
     def parse(part):
         res = subprocess.run([sys.executable, "-c", code], input=pickle.dumps(part),
@@ -189,6 +217,62 @@ def music_pcm(n_streams, n_frames, seed):
     pcm = src[:, idx]                                           # [2, S, need]
     return np.ascontiguousarray(pcm.reshape(2, n_streams, n_frames, 1152)
                                 .transpose(2, 1, 0, 3))
+
+
+def superframe_pcm(n_streams, n_sf, seed):
+    """[n_sf, S, 2, 5760] int16: music_pcm's per-stream offsets, in DAB+
+    superframes of 48 kHz AAC-LC (6 AUs of 960 samples)."""
+    import numpy as np
+    pcm = music_pcm(n_streams, 5 * n_sf, seed)                 # [5 n_sf, S, 2, 1152]
+    return np.ascontiguousarray(pcm.reshape(n_sf, 5, n_streams, 2, 1152)
+                                .transpose(0, 2, 3, 1, 4).reshape(n_sf, n_streams, 2, 5760))
+
+
+def run_dabplus(enc, pcm, torch, first8=8):
+    """Drive enc over pcm [n_sf, S, ch, n] through encode_superframes
+    (pack=False) and pack_superframes (RS).  Returns (frames per stream,
+    device step seconds, host pack seconds, numpy outputs of the first
+    `first8` streams per superframe)."""
+    S = pcm.shape[1]
+    frames, step_s, pack_s, outs = [[] for _ in range(S)], [], [], []
+    state = enc.init_state()
+    for t in range(pcm.shape[0]):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, out = enc.encode_superframes(state, pcm[t], pack=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for i, f in enumerate(enc.pack_superframes(out, add_rs=True)):
+            frames[i].append(f)
+        pack_s.append(time.perf_counter() - t1)
+        step_s.append(t1 - t0)
+        outs.append({k: v[:first8].cpu().numpy() for k, v in out.items()})
+    return frames, step_s, pack_s, outs
+
+
+def encode_cpu(cfg, pcm, dtype, torch):
+    """The port on the CPU over pcm [n_sf, S, ch, n]: numpy outputs per superframe."""
+    from odr_audioenc_tpu_torch import convert
+    from odr_audioenc_tpu_torch.dabplus import model as dmodel
+    enc = dmodel.DabPlusEncoder(cfg, pcm.shape[1], dtype=dtype, device="cpu")
+    state, outs = enc.init_state(), []
+    for t in range(pcm.shape[0]):
+        state, out = enc.encode_superframes(state, pcm[t], pack=False)
+        outs.append(convert.to_numpy(out))
+    return outs
+
+
+def same_decisions(outs_a, outs_b, keys):
+    """(AUs whose `keys` outputs are equal, AUs) over [S, nau, ...] outputs."""
+    import numpy as np
+    same = total = 0
+    for a, b in zip(outs_a, outs_b):
+        S, nau = a["bits"].shape
+        for s in range(S):
+            for u in range(nau):
+                same += all(np.array_equal(a[k][s, u], b[k][s, u]) for k in keys)
+                total += 1
+    return same, total
 
 
 def main():
@@ -407,6 +491,63 @@ def main():
               f"CRC-valid; step {psy_ms:.3f} ms (mean of {timed}), "
               f"{S_FULL * FRAME_S / (psy_ms / 1000.0):.1f} streams x realtime [{card}]",
               flush=True)
+
+    # ---- phase 6: DAB+ AAC-LC at full width, host pack ---------------------------------
+    from odr_audioenc_tpu.host import native
+    from odr_audioenc_tpu_torch.dabplus import model as dmodel
+    check(native.get_lib() is not None, "phase 6: the native host packer is not available")
+    dcfg = dmodel.DabPlusConfig(48000, 12, 2)
+    d_warm, d_timed = 2, 5
+    n_sf = d_warm + d_timed
+    dpcm = superframe_pcm(S_FULL, n_sf, seed=13)                # [n_sf, S, 2, 5760]
+    denc = dmodel.DabPlusEncoder(dcfg, S_FULL, dtype=torch.float32, device=dev)
+    psycho1_kernels.launches = psycho1_kernels.noise_launches = 0
+    dframes, dstep, dpack, douts = run_dabplus(denc, dpcm, torch)
+    d_l = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+    check(d_l == (0, 0), f"phase 6: the DAB+ path launched the psy-1 kernels {d_l}")
+    dflat = [f for fs in dframes for f in fs]
+    check(len(dflat) == S_FULL * n_sf and all(len(f) == 120 * dcfg.subch for f in dflat),
+          "phase 6: wrong superframe count or size")
+    check(all_crc_ok(dflat, "_superframe_ok"),
+          "phase 6: a superframe fails RS, its firecode or an AU CRC")
+    n8 = 8
+    for t, out in enumerate(douts):
+        for s8 in range(n8):
+            for a in range(dcfg.num_aus):
+                bw = denc.write_au(out, s8, a)
+                w = len(bw.buf) * 8 + bw.nbits + 10
+                check(int(out["bits"][s8, a]) == w, f"phase 6: superframe {t} stream {s8} AU {a}: "
+                      f"counted {int(out['bits'][s8, a])} bits, written + 10 = {w}")
+    cpu_outs = encode_cpu(dcfg, dpcm[:, :n8], torch.float32, torch)
+    d_same, d_total = same_decisions(douts, cpu_outs, ("gains", "books", "wseq"))
+    check(d_same >= 0.9 * d_total, f"phase 6: only {d_same}/{d_total} AUs decide as on the CPU")
+    d_ms = 1000.0 * statistics.mean(dstep[d_warm:])
+    pack_ms = 1000.0 * statistics.mean(dpack[d_warm:])
+    syncs = denc.recover_checks / n_sf
+    print(f"phase 6: DAB+ LC 48 kHz stereo 96k, S={S_FULL} f32, host pack (native): {len(dflat)} "
+          f"superframes valid (RS, firecode, AU CRCs); device step {d_ms:.3f} ms, host pack "
+          f"{pack_ms:.3f} ms (means of {d_timed}), {S_FULL * 0.12 / (d_ms / 1000.0):.1f} streams x "
+          f"realtime on the device step, {S_FULL * 0.12 / ((d_ms + pack_ms) / 1000.0):.1f} with the "
+          f"pack [{card}]; {syncs:.1f} crash-recovery syncs per superframe, {denc.recoveries} "
+          f"recoveries; psy-1 kernel launches {d_l}; first {n8} streams: counted == written + 10 "
+          f"on {n_sf * n8 * dcfg.num_aus} AUs, {d_same}/{d_total} AUs decide as the CPU f32 port",
+          flush=True)
+
+    # ---- phase 6b: DAB+ f64 on the card vs the f64 port on the CPU ---------------------
+    s64 = 8
+    enc64 = dmodel.DabPlusEncoder(dcfg, s64, dtype=torch.float64, device=dev)
+    f64_frames, f64_step, _, f64_outs = run_dabplus(enc64, dpcm[:3, :s64], torch)
+    cpu64 = encode_cpu(dcfg, dpcm[:3, :s64], torch.float64, torch)
+    keys = ("q", "gains", "books", "bits", "ms_used", "tns_en", "tns_order", "tns_idx",
+            "tns_en_lo", "tns_order_lo", "tns_idx_lo", "tns_len", "wseq")
+    e_same, e_total = same_decisions(f64_outs, cpu64, keys)
+    flat64 = [f for fs in f64_frames for f in fs]
+    check(all(_superframe_ok(flat64)), "phase 6b: a superframe is invalid")
+    check(e_same >= 0.99 * e_total,
+          f"phase 6b: only {e_same}/{e_total} AUs decide in f64 as on the CPU")
+    print(f"phase 6b: DAB+ LC f64 on the card, S={s64}, 3 superframes: {e_same}/{e_total} AUs "
+          f"with every integer output equal to the CPU f64 port's, {len(flat64)} superframes "
+          f"valid; step {1000.0 * statistics.mean(f64_step):.1f} ms", flush=True)
 
     left = live_children()
     check(not left, f"child processes still running: {left}")

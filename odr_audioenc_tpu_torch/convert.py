@@ -62,6 +62,20 @@ def tables_from_numpy(tabs, device, dtype=torch.float64):
     return out
 
 
+def dabplus_state_from_numpy(state_np, device, dtype):
+    """The DAB+ encoder's state (JAX `init_state`/`take_state` leaves as
+    numpy: `prev`, `pend`, `bitres`, `thr_nm1`, `pre_flag`, `wgt_last` and
+    the eight `bs_*` block-switching leaves) -> the port's: float leaves in
+    `dtype`, bool and int32 leaves as they are.  The way back is `to_numpy`,
+    whose rows the JAX encoder's `put_state` takes."""
+    out = {}
+    for k, v in state_np.items():
+        v = np.array(v)
+        t = torch.as_tensor(v, device=device)
+        out[k] = t.to(dtype) if v.dtype.kind == "f" else t
+    return out
+
+
 def to_numpy(out):
     """Step outputs (dict of tensors) -> numpy, as the host packer takes."""
     return {k: v.detach().cpu().numpy() for k, v in out.items()}
