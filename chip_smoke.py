@@ -10,16 +10,20 @@ Phases (any failure exits non-zero and prints no result):
   1. card: name and power limit (nvidia-smi); build both kernels from
      odr_audioenc_tpu_torch/csrc/ (one nvcc each, started together), time
      each build and print ptxas's registers / shared memory.
-  2. tonal_walk vs its plain version on the card: the random B=64 recipe
-     and real psy-1 spectra at B=4096 (S=2048 streams); masks equal, power'
-     within 1e-3 dB; median times of both with CUDA events.
+  2. tonal_walk vs its plain version on the card: the random B=64 recipe,
+     real psy-1 spectra at B=4096 (S=2048 streams) and the ragged B=1 and
+     B=4095 of them; masks equal, power' within 1e-3 dB; median times per
+     call of the wrapper and of the plain version with CUDA events, and the
+     device time (events over 200 back-to-back launches of the bare
+     launcher, cycling over six copies of the inputs, / 200) beside the
+     bound (bytes in and out at 3.35 TB/s).
   2b. tonal_noise (the fused tonal+noise kernel) vs its plain version
-     tonal_noise_fast: B=64 random-window spectra and the B=4096 spectra of
-     phase 2; tone members equal, at most one noise-member flip per row
-     on average, power' within 1e-2 dB where both have a noise member and
-     1e-3 dB where neither has one; median times of both.
+     tonal_noise_fast: B=64 random-window spectra and the B=4096, B=1 and
+     B=4095 spectra of phase 2; tone members equal, at most one
+     noise-member flip per row on average, power' within 1e-2 dB where both
+     have a noise member and 1e-3 dB where neither has one; times as in 2.
   3. exact path on the card: the golden config music_48s_128_j_psy1 (40
-     frames) in f64 through the shared host packer, byte-exact.
+     frames) in f64 through the port's host packer, byte-exact.
   3b. the same for psy models 0, 2 and 3: music_48s_128_j_psy0,
      music_48s_128_j_psy2 and tones_48s_192_s_psy3, byte-exact.
   4. main path at full width: S=2048 streams, 48 kHz stereo 128k joint,
@@ -59,7 +63,8 @@ nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
 and one JSON line with both kernels' figures; the last line is
 {"ok": true, "device": {...}}.
-Imports nothing of JAX.
+Imports nothing of JAX and nothing of the JAX package: the port's own host
+packers, RS and validators check every frame.
 """
 import json
 import os
@@ -87,16 +92,16 @@ def check(cond, msg):
 
 
 def _parse_ok(frames):
-    from odr_audioenc_tpu.host import mp2parse
+    from odr_audioenc_tpu_torch.host import mp2parse
     return [bool(mp2parse.parse_frame(f)["crc_ok"]) for f in frames]
 
 
 def _superframe_ok(frames):
     """DAB+ superframes: 120*subch bytes, RS, firecode and AU CRCs valid."""
     import numpy as np
-    from odr_audioenc_tpu.fec.rs import superframe_check_rs
-    from odr_audioenc_tpu.host.aacpack import firecode_crc
-    from odr_audioenc_tpu.host.dabplus_parse import validate_superframe
+    from odr_audioenc_tpu_torch.fec.rs import superframe_check_rs
+    from odr_audioenc_tpu_torch.host.aacpack import firecode_crc
+    from odr_audioenc_tpu_torch.host.dabplus_parse import validate_superframe
     return [len(f) % 120 == 0 and bool(superframe_check_rs(np.frombuffer(f, np.uint8)))
             and firecode_crc(f[2:11]) == (f[0] << 8 | f[1]) and validate_superframe(f)[0]
             for f in frames]
@@ -136,7 +141,7 @@ def run_main_path(enc, pcm, warmup, torch, kernels):
     Mp2Packer.emit, with both launch counts set to 0 just before and read
     just after.  Returns (frames per stream, step seconds, (tonal_walk
     launches, tonal_noise launches), mean step ms after `warmup`)."""
-    from odr_audioenc_tpu.host.mp2pack import Mp2Packer
+    from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
     steps, S = pcm.shape[:2]
     packer = Mp2Packer(enc.cfg)
     state = enc.init_state()
@@ -160,10 +165,10 @@ def run_main_path(enc, pcm, warmup, torch, kernels):
 
 
 def encode_golden(name, dev, torch):
-    """The golden config `name` in f64 on `dev` through the shared host
+    """The golden config `name` in f64 on `dev` through the port's host
     packer: (bytes, wanted bytes, frames, seconds)."""
     import gen_golden
-    from odr_audioenc_tpu.host.mp2pack import Mp2Packer
+    from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
     from odr_audioenc_tpu_torch import convert
     from odr_audioenc_tpu_torch.mp2 import model
     _, _, rate, bitrate, mode, psy, _ = gen_golden.CONFIGS[name]
@@ -284,9 +289,10 @@ def main():
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False")
     check(torch.cuda.device_count() >= 1, "no CUDA device")
 
-    from odr_audioenc_tpu.host import mp2parse
-    from odr_audioenc_tpu.host.mp2pack import Mp2Packer
-    from odr_audioenc_tpu_torch import convert
+    from odr_audioenc_tpu_torch.host import mp2parse
+    from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
+    from odr_audioenc_tpu_torch import convert, tables
+    from odr_audioenc_tpu_torch.bench_psy1_kernels import bound_ms, device_ms
     from odr_audioenc_tpu_torch.kernels import build
     from odr_audioenc_tpu_torch.mp2 import model, psycho1, psycho1_fast, psycho1_kernels
 
@@ -331,12 +337,33 @@ def main():
     pcm1 = music_pcm(S_FULL, 2, seed=5)[1]                      # [S, 2, 1152]
     win = torch.as_tensor(pcm1[..., 128:].reshape(2 * S_FULL, 1024), device=dev)
     power, energy, _ = psycho1.power_spectrum(win.to(torch.float32) / 32768.0)
+    B = 2 * S_FULL
+    for rows in (1, B - 1):                                     # the ragged edges
+        err = max(err, compare(power[:rows])[1])
     cand, e = compare(power)
     err = max(err, e)
     k_ms = cuda_median_ms(lambda: psycho1_kernels.tonal_walk(power, cand), 50, torch)
     p_ms = cuda_median_ms(lambda: psycho1_fast.tonal_fast(power, cand), 20, torch)
-    print(f"phase 2: tonal_walk == tonal_fast (masks equal, max |dpower'| {err:.3g} dB); "
-          f"B={2 * S_FULL}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms [{card}]", flush=True)
+    # device time of the bare launcher over six copies of the inputs: the
+    # tonal walk's reads of them, 63 MB, are more than the 50 MB L2
+    sets = [(torch.roll(power, 7 * i, 0), torch.roll(energy, 7 * i, 0), torch.roll(cand, 7 * i, 0))
+            for i in range(6)]
+    outs = (torch.empty_like(power), torch.empty_like(cand), torch.empty_like(cand))
+    walk_tab = torch.as_tensor(psycho1_kernels.walk_table(), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def bare_walk(i):
+        p, _, c = sets[i]
+        check(psycho1_kernels._launcher("tonal_walk")(
+            p.data_ptr(), c.data_ptr(), walk_tab.data_ptr(), *(o.data_ptr() for o in outs), B,
+            stream) == 0, "tonal_walk: launch failed")
+
+    kd_ms = device_ms(bare_walk, len(sets))
+    kb_ms = bound_ms("tonal_walk", B)
+    print(f"phase 2: tonal_walk == tonal_fast at B=64, 1, {B - 1}, {B} (masks equal, max "
+          f"|dpower'| {err:.3g} dB); B={B}: kernel {k_ms:.4f} ms per call, device "
+          f"{kd_ms:.4f} ms (bound {kb_ms:.4f} ms, {kb_ms / kd_ms:.1%}), plain {p_ms:.4f} ms "
+          f"[{card}]", flush=True)
 
     # ---- phase 2b: fused tonal+noise kernel vs plain version ----------------------
     tabs48 = psycho1_fast.make_fast_tables(psycho1.make_psy1_tables(np.array([1])))
@@ -365,16 +392,30 @@ def main():
                            device=dev)
     rp, rn, _ = psycho1.power_spectrum(rwin)
     _, flips64, err_n = compare_noise(rp, rn)
+    for rows in (1, B - 1):
+        err_n = max(err_n, compare_noise(power[:rows], energy[:rows])[2])
     cand, flips, e = compare_noise(power, energy)
     err_n = max(err_n, e)
     kn_ms = cuda_median_ms(lambda: psycho1_kernels.tonal_noise(power, cand, energy, *uniform),
                            50, torch)
     pn_ms = cuda_median_ms(lambda: psycho1_fast.tonal_noise_fast(power, cand, energy, *uniform),
                            20, torch)
-    print(f"phase 2b: tonal_noise vs tonal_noise_fast: tone members equal, noise-member "
-          f"flips {flips64} (B=64) and {flips} (B={2 * S_FULL}), max |dpower'| off the "
-          f"flips {err_n:.3g} dB; B={2 * S_FULL}: kernel {kn_ms:.4f} ms, plain "
-          f"{pn_ms:.4f} ms [{card}]", flush=True)
+    noise_tab, base32, span32, _ = psycho1_kernels._geometry(*uniform)
+
+    def bare_noise(i):
+        p, en, c = sets[i]
+        check(psycho1_kernels._launcher("tonal_noise")(
+            p.data_ptr(), c.data_ptr(), en.data_ptr(), noise_tab.data_ptr(), base32.data_ptr(),
+            span32.data_ptr(), *(o.data_ptr() for o in outs), float(tables.CF), B, stream) == 0,
+            "tonal_noise: launch failed")
+
+    knd_ms = device_ms(bare_noise, len(sets))
+    knb_ms = bound_ms("tonal_noise", B)
+    print(f"phase 2b: tonal_noise vs tonal_noise_fast at B=64, 1, {B - 1}, {B}: tone members "
+          f"equal, noise-member flips {flips64} (B=64) and {flips} (B={B}), max |dpower'| off "
+          f"the flips {err_n:.3g} dB; B={B}: kernel {kn_ms:.4f} ms per call, device "
+          f"{knd_ms:.4f} ms (bound {knb_ms:.4f} ms, {knb_ms / knd_ms:.1%}), plain {pn_ms:.4f} ms "
+          f"[{card}]", flush=True)
 
     # ---- phase 3 / 3b: exact path, golden bytes, on the card -------------------------
     for phase, name in (("3", "music_48s_128_j_psy1"), ("3b", "music_48s_128_j_psy0"),
@@ -493,9 +534,9 @@ def main():
               flush=True)
 
     # ---- phase 6: DAB+ AAC-LC at full width, host pack ---------------------------------
-    from odr_audioenc_tpu.host import native
+    from odr_audioenc_tpu_torch.host import native
     from odr_audioenc_tpu_torch.dabplus import model as dmodel
-    check(native.get_lib() is not None, "phase 6: the native host packer is not available")
+    native.get_lib()       # raises if the native host packer does not build
     dcfg = dmodel.DabPlusConfig(48000, 12, 2)
     d_warm, d_timed = 2, 5
     n_sf = d_warm + d_timed
@@ -557,11 +598,15 @@ def main():
         {"name": "tonal_walk", "route": "cuda",
          "source": "odr_audioenc_tpu_torch/csrc/tonal_walk.cu",
          "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:140",
-         "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms},
+         "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": kb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": kd_ms,
+         "share": kb_ms / kd_ms},
         {"name": "tonal_noise", "route": "cuda",
          "source": "odr_audioenc_tpu_torch/csrc/tonal_noise.cu",
          "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:151",
-         "launches": noise_launches, "max_abs_err": err_n, "ms": kn_ms, "plain_ms": pn_ms}]}))
+         "launches": noise_launches, "max_abs_err": err_n, "ms": kn_ms, "plain_ms": pn_ms,
+         "bound_ms": knb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": knd_ms,
+         "share": knb_ms / knd_ms}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

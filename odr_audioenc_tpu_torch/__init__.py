@@ -2,9 +2,11 @@
 PyTorch, for CUDA.
 
 A port of the JAX package `odr_audioenc_tpu` (which stays the reference):
-same layout (`mp2/` and `dabplus/` module names), same tables
-(`odr_audioenc_tpu.tables`, `odr_audioenc_tpu.dabplus.tables`), same host
-packers, RS and validators (`odr_audioenc_tpu.host`, `odr_audioenc_tpu.fec`).
+same layout (`mp2/` and `dabplus/` module names).  It imports nothing of
+the JAX package: it carries its own copies of the standard's tables
+(`tables.py`, `dabplus/tables.py`, `data/*.npz`), of the host packers and
+validators (`host/`), of the RS code (`fec/`) and of the C++ packers
+(`native/`, built at first use by `host/native.py`).
 On CUDA tensors the psy-1 tonal walk runs as a hand-written CUDA kernel
 (`csrc/tonal_walk.cu`), or fused with the noise labelling
 (`csrc/tonal_noise.cu`).  DAB+ covers AAC-LC with block switching, TNS,

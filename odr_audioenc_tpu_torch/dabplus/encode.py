@@ -20,9 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from odr_audioenc_tpu.dabplus import tables as AT
-
 from ..device import const
+from . import tables as AT
 
 NB = AT.MAX_SFB_LONG  # 49 padded bands
 HOLE_O = 8            # rate-loop offset where allowMoreHoles band erasure opens

@@ -6,8 +6,8 @@ One step advances S streams by one superframe (num_aus AUs of 960 samples):
 block switching on the undelayed input, then per AU the switched MDCT and
 the rate-controlled quantization of encode.encode_au, carrying the bit
 reservoir, the pre-echo history and the weighting flag from AU to AU.  The
-integer decisions go to the shared host packer (the native batch packer,
-or the Python AU writer) exactly as the JAX encoder's do.
+integer decisions go to the port's host packer (host/: the native batch
+packer, or the Python AU writer) exactly as the JAX encoder's do.
 """
 from dataclasses import dataclass
 
@@ -15,14 +15,13 @@ import numpy as np
 import torch
 from torch import nn
 
-from odr_audioenc_tpu.dabplus import tables as AT
-from odr_audioenc_tpu.host import native
-from odr_audioenc_tpu.host.aacpack import SuperframePacker, write_au, write_dse
-
 from .. import convert
 from ..device import default_device, default_dtype
+from ..host import native
+from ..host.aacpack import SuperframePacker, write_au, write_dse
 from . import blockswitch as BS
 from . import encode as E
+from . import tables as AT
 
 
 @dataclass
@@ -78,8 +77,9 @@ class DabPlusEncoder(nn.Module):
 
     def __init__(self, cfg: DabPlusConfig, n_streams=1, dtype=None, device=None,
                  pack_on_device=False):
-        """dtype: float64 (the exact path) or float32; defaults by device
-        (device.default_dtype)."""
+        """device: the card by default (device.default_device raises where
+        there is none; the CPU takes device="cpu").  dtype: float64 (the
+        exact path) or float32; defaults by device (device.default_dtype)."""
         super().__init__()
         if cfg.aot in ("sbr", "ps"):
             raise NotImplementedError(
@@ -352,15 +352,14 @@ class DabPlusEncoder(nn.Module):
 
     def pack_superframes(self, out, add_rs=None, pads=None, use_native=True):
         """Host half of encode_superframes (AU syntax + superframe + RS)
-        through the shared packers: the native batch packer when it is
-        available, else the Python AU writer."""
+        through the port's host packers: the native batch packer (built at
+        first use; a failed build raises), or with use_native=False the
+        Python AU writer, its validation twin."""
         if add_rs is None:
             add_rs, pads = getattr(self, "_pack_args", (True, None))
         out = convert.to_numpy(out)
         if use_native:
-            frames = native.dabplus_pack_batch(self, out, pads, add_rs)
-            if frames is not None:
-                return frames
+            return native.dabplus_pack_batch(self, out, pads, add_rs)
         frames = []
         for s in range(self.S):
             aus = []

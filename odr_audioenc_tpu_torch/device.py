@@ -18,7 +18,11 @@ torch.backends.cudnn.allow_tf32 = False
 
 
 def default_device():
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The card: the port's entry points run on CUDA unless the caller
+    passes device="cpu".  Raises where there is no card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device=\"cpu\" to run the port on the CPU")
+    return torch.device("cuda")
 
 
 def default_dtype(device):

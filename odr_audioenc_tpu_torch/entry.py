@@ -11,7 +11,8 @@ from .mp2.model import Mp2Encoder, make_config
 
 def entry(device=None, n_streams=8):
     """Returns (fn, example_args): fn(state, pcm, xpad) runs one encode step
-    of the flagship configuration on `device` (default: CUDA if present)."""
+    of the flagship configuration on `device` (default: the card; raises
+    where there is none, so the CPU takes device="cpu")."""
     device = torch.device(device) if device is not None else default_device()
     cfg = make_config([{"rate": 48000, "bitrate": 128, "mode": "j"}] * n_streams)
     enc = Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device=device)

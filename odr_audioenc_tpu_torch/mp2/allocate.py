@@ -8,8 +8,7 @@ replicates the C expression, so the f64 path is bit-exact.
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
+from .. import tables as T
 from ..device import const
 
 SBLIMIT = 32

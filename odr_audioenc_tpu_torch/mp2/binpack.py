@@ -9,9 +9,8 @@ individual allocations emit three codewords.
 """
 import torch
 
-from odr_audioenc_tpu import tables as T
-
 from .. import bitpack as BP
+from .. import tables as T
 from ..device import const
 
 SBLIMIT = 32

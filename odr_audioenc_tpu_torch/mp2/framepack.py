@@ -18,9 +18,8 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
 from .. import bitpack as BP
+from .. import tables as T
 from . import binpack
 
 SBLIMIT = 32

@@ -13,9 +13,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from odr_audioenc_tpu import tables as T
-
 from .. import convert
+from .. import tables as T
 from ..device import default_device, default_dtype
 from . import (allocate, binpack, framepack, polyphase, psycho0, psycho1, psycho1_fast,
                psycho2, psycho3, psycho4, psycho_n1)
@@ -116,8 +115,10 @@ class Mp2Encoder(nn.Module):
     def __init__(self, config: Mp2Config, psy_model=1, dtype=None, device=None,
                  fast_psy=None, pack_on_device=False, psy_kernel="tonal"):
         """psy_model: -1, 0, 1, 2, 3 or 4 (the reference's --dabpsy; 2, 3
-        and 4 need one sample rate per batch).  dtype: float64 (exact path)
-        or float32; defaults by device (device.default_dtype).  fast_psy:
+        and 4 need one sample rate per batch).  device: the card by default
+        (device.default_device raises where there is none; the CPU takes
+        device="cpu").  dtype: float64 (exact path) or float32; defaults by
+        device (device.default_dtype).  fast_psy:
         the vectorised psy-1 with the CUDA kernels instead of the exact
         scans; defaults to True for float32.  psy_kernel: the psy-1 fast
         path's kernel, "tonal" (the tonal walk, then the torch noise

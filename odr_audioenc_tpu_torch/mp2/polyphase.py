@@ -11,8 +11,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
+from .. import tables as T
 from ..device import const
 
 # window m of block t reads x[511 + 32 t - m] of concat(hist[480], frame[1152])

@@ -21,8 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
+from .. import tables as T
 from ..device import const
 
 DBMIN = T.DBMIN

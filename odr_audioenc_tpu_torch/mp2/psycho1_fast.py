@@ -19,8 +19,7 @@ so SMRs differ from the exact path by well under the table's own error.
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
+from .. import tables as T
 from ..device import const
 from . import psycho1_kernels
 from .psycho1 import DBMIN, NBINS, PAD, minimum_mask, power_spectrum, smr_from, \
@@ -39,6 +38,22 @@ def _db(p):
     return 10.0 * torch.log10(p.clamp_min(1e-37))
 
 
+def min_zeroer(accept):
+    """mz[b] = the smallest accepted bin a != b with |a - b| <= TONAL_RUN[a]
+    (it zeroes b), NBINS + 1 where there is none; accept [B, 512] bool."""
+    B, dev = accept.shape[0], accept.device
+    runs = const(T.TONAL_RUN, dev, torch.int64)
+    bins = torch.arange(NBINS, device=dev)
+    mz = torch.full((B, NBINS), NBINS + 1, dtype=torch.int64, device=dev)
+    for d in range(1, PAD + 1):
+        src = accept & (runs >= d)
+        zr = torch.roll(src, d, 1) & (bins >= d)            # accepter at b-d
+        zl = torch.roll(src, -d, 1) & (bins < NBINS - d)    # accepter at b+d
+        mz = torch.where(zr, torch.minimum(mz, bins - d), mz)
+        mz = torch.where(zl, torch.minimum(mz, bins + d), mz)
+    return mz
+
+
 def tonal_fast(power, cand):
     """Left-causal relaxation version of the tonal walk - the plain version
     of the CUDA kernel in psycho1_kernels.
@@ -55,16 +70,6 @@ def tonal_fast(power, cand):
     runs = const(T.TONAL_RUN, dev, torch.int64)                       # [512]
     bins = torch.arange(NBINS, device=dev)
     BIG = NBINS + 1
-
-    def min_zeroer(accept):
-        mz = torch.full((B, NBINS), BIG, dtype=torch.int64, device=dev)
-        for d in range(1, PAD + 1):
-            src = accept & (runs >= d)
-            zr = torch.roll(src, d, 1) & (bins >= d)            # accepter at b-d
-            zl = torch.roll(src, -d, 1) & (bins < NBINS - d)    # accepter at b+d
-            mz = torch.where(zr, torch.minimum(mz, bins - d), mz)
-            mz = torch.where(zl, torch.minimum(mz, bins + d), mz)
-        return mz
 
     def boost_values(mz):
         """boosted dB of each bin as if accepted at its own turn (neighbours

@@ -20,7 +20,7 @@ atan2(0, H[512]), i.e. pi where Re X_512 < 0.
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
+from .. import tables as T
 
 BLKSIZE = 1024
 HBLK = 513

@@ -14,8 +14,7 @@ port's exact psy-1 path does.  The same code serves f64 and f32.
 import numpy as np
 import torch
 
-from odr_audioenc_tpu import tables as T
-
+from .. import tables as T
 from ..device import const
 from .psycho1 import _add_db
 

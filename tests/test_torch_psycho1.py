@@ -302,3 +302,66 @@ def test_tonal_noise_kernel_matches_plain_on_card():
             (before[0], before[1] + 1)
         ref = tf.tonal_noise_fast(*dev, *uniform)
         _assert_noise_close(*(t.cpu().numpy() for t in got + ref), S)
+
+
+@pytest.mark.parametrize("density", [0.02, 0.1, 0.3, 0.7])
+def test_reach_masks_reproduce_min_zeroer(density):
+    """The kernels' zeroing from the wrapper's reach table and the accept
+    words (psycho1_kernels.zeroing_from_words, the kernel's bit arithmetic)
+    against the plain min_zeroer of tonal_fast, for random accept patterns:
+    mz equal, and "b-1 / b+1 zeroed by an accepted bin left of b" equal to
+    mz[b-1] < b and mz[b+1] < b."""
+    acc = torch.as_tensor(np.random.default_rng(int(density * 100)).random((64, 512)) < density)
+    mz, left, right = psycho1_kernels.zeroing_from_words(acc.numpy())
+    ref = tf.min_zeroer(acc)
+    bins = torch.arange(512)
+    no = torch.zeros((64, 1), dtype=torch.bool)
+    assert torch.equal(mz, ref)
+    assert torch.equal(left, torch.cat([no, ref[:, :-1] < bins[1:]], 1))
+    assert torch.equal(right, torch.cat([ref[:, 1:] < bins[:-1], no], 1))
+    tab = psycho1_kernels.walk_table()
+    assert tab.dtype == np.int32 and tab.shape == (2, 512)
+    np.testing.assert_array_equal(tab[0], jp.T.TONAL_RUN)
+    assert int(tab[1].max()) < 1 << 25 and not (tab[1] >> 12 & 1).any()   # never itself
+
+
+@pytest.mark.parametrize("rate_idx", [0, 1, 2, 4, 5, 6])
+def test_noise_tables_band_sums(rate_idx):
+    """The fused kernel's band sums (psycho1_kernels.band_sums_lanes,
+    from the wrapper's noise_tables) equal the band matrix product of the
+    plain version for each sample rate's geometry (f64, sums of 1-130
+    positive terms in another order: 1e-12 relative)."""
+    tabs = jf.make_fast_tables(jp.make_psy1_tables(np.array([rate_idx])))
+    bmt, base, span = tabs["static_noise_uniform"]
+    x = np.random.default_rng(rate_idx).random((16, 512))
+    got = psycho1_kernels.band_sums_lanes(x, psycho1_kernels.noise_tables(base, span))
+    np.testing.assert_allclose(got, x @ bmt.astype(np.float64), rtol=1e-12, atol=0)
+
+
+@pytest.mark.cuda
+def test_both_kernels_ragged_batches_on_card():
+    """Both kernels at B = 1, 7 and 4097 (the ragged edge of several rows
+    per block and of the persistent grid) against their plain versions on
+    the card, by the bounds of the tests above; one launch per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    for B in (1, 7, 4097):
+        power, cand = _tonal_inputs(B=B, seed=B)
+        p, c = (torch.as_tensor(a, device="cuda") for a in (power, cand))
+        before = psycho1_kernels.launches
+        pk, mk, yk = psycho1_kernels.tonal_walk(p, c)
+        torch.cuda.synchronize()
+        assert psycho1_kernels.launches == before + 1
+        pp, mp, yp = tf.tonal_fast(p, c)
+        assert torch.equal(mk, mp) and torch.equal(yk, yp), B
+        assert float((pk - pp).abs().max()) < 1e-3
+        S = (B + 1) // 2
+        tabs, power, energy, cand = _noise_inputs(S, seed=B)
+        dev = [torch.as_tensor(a[:B], device="cuda") for a in (power, cand, energy)]
+        uniform = convert.tables_from_numpy(tabs, "cuda", torch.float32)["static_noise_uniform"]
+        before = psycho1_kernels.noise_launches
+        got = psycho1_kernels.tonal_noise(*dev, *uniform)
+        torch.cuda.synchronize()
+        assert psycho1_kernels.noise_launches == before + 1
+        ref = tf.tonal_noise_fast(*dev, *uniform)
+        _assert_noise_close(*(t.cpu().numpy() for t in got + ref), S)
