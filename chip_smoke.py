@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's MP2 and DAB+ AAC-LC main paths on one CUDA card
-and check them.
+"""Drive the PyTorch port's MP2 and DAB+ (AAC-LC, HE-AAC, HE-AAC v2) main
+paths on one CUDA card and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card):
 
@@ -56,9 +56,30 @@ Phases (any failure exits non-zero and prints no result):
   6b. the same configuration in f64 on the card at S=8 for 3 superframes
      against the f64 port on the CPU: >= 99% of AUs with identical integer
      decisions and every superframe valid.
+  7. HE-AAC (SBR) at full width: 48 kHz mono 48 kbps (subch 6, the sbr_48
+     shape), S=2048, f32, the left channel of phase 6's music, 2 warm-up + 5
+     timed superframes through encode_superframes(pack=False) and the
+     native pack_superframes(add_rs=True).  Every superframe is 720 bytes
+     and passes RS, the firecode and validate_superframe; on the first 8
+     streams, on every AU, the counted core bits equal the written core + 10,
+     the written FIL element equals sbr.payload_bits with the header bits as
+     written, and the step's sbr_bits equal payload_bits as the reference
+     counts them; >= 90% of AUs make the CPU f32 port's core decisions
+     (gains, books, window sequence) and carry its SBR side data.  Prints
+     the device step, the host pack and streams x realtime (S x 0.12 s /
+     step).
+  7b. the same for HE-AAC v2 (PS): 48 kHz stereo 32 kbps (subch 4, the
+     ps_32 shape; 2 PS envelopes), with the PS parameters among the side data.
+  7c. the same for stereo SBR at 64 kbps (subch 8, CPE core, per-AU
+     coupling); prints how many AUs are coupled.
+  7d. each of the three in f64 on the card at S=8 for 3 superframes
+     against the f64 port on the CPU: >= 99% of AUs with every integer
+     output (the core's, the side data and sbr_bits) equal, every superframe
+     valid.
 
-Every main-path run (4, 4b, 5, 6) sets the launch counts to 0 just before it
-and reads them just after.  Every process the script starts (nvcc,
+Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d) sets the launch counts to 0
+just before it and reads them just after; the DAB+ runs must launch neither
+psy-1 kernel.  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
 and one JSON line with both kernels' figures; the last line is
@@ -233,13 +254,14 @@ def superframe_pcm(n_streams, n_sf, seed):
                                 .transpose(0, 2, 3, 1, 4).reshape(n_sf, n_streams, 2, 5760))
 
 
-def run_dabplus(enc, pcm, torch, first8=8):
+def run_dabplus(enc, pcm, torch, first8=8, count_key=None):
     """Drive enc over pcm [n_sf, S, ch, n] through encode_superframes
     (pack=False) and pack_superframes (RS).  Returns (frames per stream,
     device step seconds, host pack seconds, numpy outputs of the first
-    `first8` streams per superframe)."""
+    `first8` streams per superframe, the sum of out[count_key] over every
+    stream and superframe, read after the pack)."""
     S = pcm.shape[1]
-    frames, step_s, pack_s, outs = [[] for _ in range(S)], [], [], []
+    frames, step_s, pack_s, outs, counted = [[] for _ in range(S)], [], [], [], 0
     state = enc.init_state()
     for t in range(pcm.shape[0]):
         torch.cuda.synchronize()
@@ -252,7 +274,57 @@ def run_dabplus(enc, pcm, torch, first8=8):
         pack_s.append(time.perf_counter() - t1)
         step_s.append(t1 - t0)
         outs.append({k: v[:first8].cpu().numpy() for k, v in out.items()})
-    return frames, step_s, pack_s, outs
+        if count_key in out:
+            counted += int(out[count_key].sum())
+    return frames, step_s, pack_s, outs, counted
+
+
+# the HE-AAC side outputs held against the CPU port (those the step emits)
+HE_SIDE = ("sbr_env", "sbr_env2", "sbr_transient", "sbr_noise_q", "sbr_invf", "sbr_addharm",
+           "sbr_tgrid", "sbr_cpl", "ps_iid", "ps_icc", "ps_iid_fine", "ps_fine")
+
+
+def fil_bits(enc, out, hdr_bits):
+    """sbr.payload_bits over numpy step outputs [S, nau, ...] on the CPU."""
+    import torch
+    from odr_audioenc_tpu_torch.dabplus import sbr
+    t = {k: torch.as_tensor(v) for k, v in out.items()}
+    ps_bits = None
+    if enc.is_ps:
+        ps_bits = sbr.ps_data_bits(t["ps_iid"], t["ps_iid_fine"], t["ps_fine"], t["ps_icc"])
+    return sbr.payload_bits({k: v for k, v in t.items() if k.startswith("sbr_")},
+                            enc.sbr_params, enc.cfg.num_aus, ps_bits=ps_bits,
+                            hdr_bits=hdr_bits).numpy()
+
+
+def check_heaac_aus(enc, outs, phase):
+    """Every AU of `outs` (numpy, the first streams per superframe): counted
+    core bits = written core + 10; the written FIL element = payload_bits
+    with the header bits as written; the step's sbr_bits = payload_bits as
+    the reference counts them (its header count is off by a few bits, so
+    the FIL can differ from it by a byte, two where the FIL's length
+    crosses its escape at 15 bytes).  Returns (AUs checked, AUs whose FIL
+    differs from sbr_bits)."""
+    import numpy as np
+    from odr_audioenc_tpu_torch.dabplus import sbr
+    n = off = 0
+    for t, out in enumerate(outs):
+        check(np.array_equal(out["sbr_bits"], fil_bits(enc, out, sbr.HDR_BITS)),
+              f"phase {phase}: superframe {t}: the step's sbr_bits are not payload_bits")
+        fil = fil_bits(enc, out, sbr.HDR_BITS_WRITTEN)
+        for s, a in np.ndindex(*out["bits"].shape):
+            core = enc.write_au(out, s, a, sbr=False)
+            core = len(core.buf) * 8 + core.nbits
+            full = enc.write_au(out, s, a)
+            check(int(out["bits"][s, a]) == core + 10,
+                  f"phase {phase}: superframe {t} stream {s} AU {a}: counted "
+                  f"{int(out['bits'][s, a])} core bits, written + 10 = {core + 10}")
+            check(len(full.buf) * 8 + full.nbits - core == fil[s, a],
+                  f"phase {phase}: superframe {t} stream {s} AU {a}: FIL element of "
+                  f"{len(full.buf) * 8 + full.nbits - core} bits, payload_bits {fil[s, a]}")
+            n += 1
+            off += int(fil[s, a] != out["sbr_bits"][s, a])
+    return n, off
 
 
 def encode_cpu(cfg, pcm, dtype, torch):
@@ -543,7 +615,7 @@ def main():
     dpcm = superframe_pcm(S_FULL, n_sf, seed=13)                # [n_sf, S, 2, 5760]
     denc = dmodel.DabPlusEncoder(dcfg, S_FULL, dtype=torch.float32, device=dev)
     psycho1_kernels.launches = psycho1_kernels.noise_launches = 0
-    dframes, dstep, dpack, douts = run_dabplus(denc, dpcm, torch)
+    dframes, dstep, dpack, douts, _ = run_dabplus(denc, dpcm, torch)
     d_l = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
     check(d_l == (0, 0), f"phase 6: the DAB+ path launched the psy-1 kernels {d_l}")
     dflat = [f for fs in dframes for f in fs]
@@ -577,7 +649,7 @@ def main():
     # ---- phase 6b: DAB+ f64 on the card vs the f64 port on the CPU ---------------------
     s64 = 8
     enc64 = dmodel.DabPlusEncoder(dcfg, s64, dtype=torch.float64, device=dev)
-    f64_frames, f64_step, _, f64_outs = run_dabplus(enc64, dpcm[:3, :s64], torch)
+    f64_frames, f64_step, _, f64_outs, _ = run_dabplus(enc64, dpcm[:3, :s64], torch)
     cpu64 = encode_cpu(dcfg, dpcm[:3, :s64], torch.float64, torch)
     keys = ("q", "gains", "books", "bits", "ms_used", "tns_en", "tns_order", "tns_idx",
             "tns_en_lo", "tns_order_lo", "tns_idx_lo", "tns_len", "wseq")
@@ -589,6 +661,68 @@ def main():
     print(f"phase 6b: DAB+ LC f64 on the card, S={s64}, 3 superframes: {e_same}/{e_total} AUs "
           f"with every integer output equal to the CPU f64 port's, {len(flat64)} superframes "
           f"valid; step {1000.0 * statistics.mean(f64_step):.1f} ms", flush=True)
+
+    # ---- phases 7 / 7b / 7c: HE-AAC and HE-AAC v2 at full width, host pack ---------------
+    # the phase 6 music (a 48 kHz HE-AAC superframe is 3 AUs of 1920 samples,
+    # 5760 as LC's 6 of 960); mono configurations read its left channel
+    he_cfgs = (("7", "HE-AAC 48 kHz mono 48k (sbr_48)",
+                dmodel.DabPlusConfig(48000, 6, 1, aot="sbr")),
+               ("7b", "HE-AAC v2 48 kHz stereo 32k (ps_32)",
+                dmodel.DabPlusConfig(48000, 4, 2, aot="ps")),
+               ("7c", "HE-AAC 48 kHz stereo 64k", dmodel.DabPlusConfig(48000, 8, 2, aot="sbr")))
+    for phase, label, hcfg in he_cfgs:
+        hpcm = np.ascontiguousarray(dpcm[:, :, :hcfg.channels])
+        henc = dmodel.DabPlusEncoder(hcfg, S_FULL, dtype=torch.float32, device=dev)
+        psycho1_kernels.launches = psycho1_kernels.noise_launches = 0
+        hframes, hstep, hpack, houts, n_cpl = run_dabplus(henc, hpcm, torch, count_key="sbr_cpl")
+        h_l = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+        check(h_l == (0, 0), f"phase {phase}: the HE-AAC path launched the psy-1 kernels {h_l}")
+        hflat = [f for fs in hframes for f in fs]
+        check(len(hflat) == S_FULL * n_sf and all(len(f) == 120 * hcfg.subch for f in hflat),
+              f"phase {phase}: wrong superframe count or size")
+        check(all_crc_ok(hflat, "_superframe_ok"),
+              f"phase {phase}: a superframe fails RS, its firecode or an AU CRC")
+        n_aus, n_off = check_heaac_aus(henc, houts, phase)
+        hkeys = ("gains", "books", "wseq") + tuple(k for k in HE_SIDE if k in houts[0])
+        h_same, h_total = same_decisions(houts, encode_cpu(hcfg, hpcm[:, :n8], torch.float32,
+                                                           torch), hkeys)
+        check(h_same >= 0.9 * h_total,
+              f"phase {phase}: only {h_same}/{h_total} AUs decide as on the CPU")
+        h_ms = 1000.0 * statistics.mean(hstep[d_warm:])
+        hp_ms = 1000.0 * statistics.mean(hpack[d_warm:])
+        cpl = (f"; {n_cpl} of {S_FULL * n_sf * hcfg.num_aus} AUs coupled"
+               if henc.core_channels == 2 else "")
+        print(f"phase {phase}: {label}, S={S_FULL} f32, host pack (native): {len(hflat)} "
+              f"superframes of {120 * hcfg.subch} bytes valid (RS, firecode, AU CRCs); device "
+              f"step {h_ms:.3f} ms, host pack {hp_ms:.3f} ms (means of {d_timed}), "
+              f"{S_FULL * 0.12 / (h_ms / 1000.0):.1f} streams x realtime on the device step, "
+              f"{S_FULL * 0.12 / ((h_ms + hp_ms) / 1000.0):.1f} with the pack [{card}]; "
+              f"{henc.recover_checks / n_sf:.1f} crash-recovery syncs per superframe, "
+              f"{henc.recoveries} recoveries; psy-1 kernel launches {h_l}; first {n8} streams: "
+              f"counted core == written + 10 and FIL == payload_bits on {n_aus} AUs (FIL off "
+              f"the reference's count, sbr_bits, on {n_off}), "
+              f"{h_same}/{h_total} AUs with the CPU f32 port's core decisions and side "
+              f"data{cpl}", flush=True)
+        del henc, hframes, hflat
+
+    # ---- phase 7d: the three HE-AAC configurations in f64 on the card vs the CPU ------------
+    psycho1_kernels.launches = psycho1_kernels.noise_launches = 0
+    for _, label, hcfg in he_cfgs:
+        hpcm = np.ascontiguousarray(dpcm[:3, :s64, :hcfg.channels])
+        h64 = dmodel.DabPlusEncoder(hcfg, s64, dtype=torch.float64, device=dev)
+        h64_frames, h64_step, _, h64_outs, _ = run_dabplus(h64, hpcm, torch)
+        hkeys = keys + ("sbr_bits",) + tuple(k for k in HE_SIDE if k in h64_outs[0])
+        e_same, e_total = same_decisions(h64_outs, encode_cpu(hcfg, hpcm, torch.float64, torch),
+                                         hkeys)
+        flat64 = [f for fs in h64_frames for f in fs]
+        check(all(_superframe_ok(flat64)), f"phase 7d: {label}: a superframe is invalid")
+        check(e_same >= 0.99 * e_total,
+              f"phase 7d: {label}: only {e_same}/{e_total} AUs decide in f64 as on the CPU")
+        print(f"phase 7d: {label} f64 on the card, S={s64}, 3 superframes: {e_same}/{e_total} "
+              f"AUs with every integer output equal to the CPU f64 port's, {len(flat64)} "
+              f"superframes valid; step {1000.0 * statistics.mean(h64_step):.1f} ms", flush=True)
+    h_l = (psycho1_kernels.launches, psycho1_kernels.noise_launches)
+    check(h_l == (0, 0), f"phase 7d: the HE-AAC path launched the psy-1 kernels {h_l}")
 
     left = live_children()
     check(not left, f"child processes still running: {left}")

@@ -64,8 +64,10 @@ def tables_from_numpy(tabs, device, dtype=torch.float64):
 
 def dabplus_state_from_numpy(state_np, device, dtype):
     """The DAB+ encoder's state (JAX `init_state`/`take_state` leaves as
-    numpy: `prev`, `pend`, `bitres`, `thr_nm1`, `pre_flag`, `wgt_last` and
-    the eight `bs_*` block-switching leaves) -> the port's: float leaves in
+    numpy: `prev`, `pend`, `bitres`, `thr_nm1`, `pre_flag`, `wgt_last`, the
+    eight `bs_*` block-switching leaves and, for HE-AAC, the decimator,
+    QMF and SBR-delay histories `ds_hist`, `qmf_hist`, `sbr_hist` and for
+    HE-AAC v2 the PS delay `ps_hist`) -> the port's: float leaves in
     `dtype`, bool and int32 leaves as they are.  The way back is `to_numpy`,
     whose rows the JAX encoder's `put_state` takes."""
     out = {}
@@ -77,5 +79,7 @@ def dabplus_state_from_numpy(state_np, device, dtype):
 
 
 def to_numpy(out):
-    """Step outputs (dict of tensors) -> numpy, as the host packer takes."""
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    """Step outputs (dict of tensors, or already numpy) -> numpy, as the
+    host packer takes."""
+    return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+            for k, v in out.items()}

@@ -1,10 +1,13 @@
-"""Batched DAB+ AAC-LC encoder: per-stream config, carried state, the
-superframe step and the host packing glue (port of
-odr_audioenc_tpu/dabplus/model.py, AAC-LC only).
+"""Batched DAB+ encoder: per-stream config, carried state, the superframe
+step and the host packing glue (port of odr_audioenc_tpu/dabplus/model.py):
+AAC-LC, HE-AAC (SBR) and HE-AAC v2 (PS).
 
-One step advances S streams by one superframe (num_aus AUs of 960 samples):
-block switching on the undelayed input, then per AU the switched MDCT and
-the rate-controlled quantization of encode.encode_au, carrying the bit
+One step advances S streams by one superframe (num_aus AUs of 960 core
+samples): block switching on the undelayed input; for HE-AAC v2 the PS
+parameters and the energy-compensated mono downmix; for HE-AAC the SBR side
+analysis of the delayed full-rate stream, its payload size and the
+2:1 decimation to the core rate; then per AU the switched MDCT and the
+rate-controlled quantization of encode.encode_au, carrying the bit
 reservoir, the pre-echo history and the weighting flag from AU to AU.  The
 integer decisions go to the port's host packer (host/: the native batch
 packer, or the Python AU writer) exactly as the JAX encoder's do.
@@ -13,6 +16,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .. import convert
@@ -21,7 +25,18 @@ from ..host import native
 from ..host.aacpack import SuperframePacker, write_au, write_dse
 from . import blockswitch as BS
 from . import encode as E
+from . import sbr as SBR
 from . import tables as AT
+
+# Full-rate samples the decoder's SBR envelope application leads the decoded
+# core by: the envelope of AU n is measured over core samples
+# [n*au - SBR_SHIFT, (n+1)*au - SBR_SHIFT), the span whose patch the decoder
+# scales with it.
+SBR_SHIFT = 2304
+# PS parameter application span lead (SBR_SHIFT - au/2: the decoder
+# interpolates each parameter set from the previous one across the span)
+PS_SHIFT = 1344
+DS_TAPS = 127          # the half-band decimator's length
 
 
 @dataclass
@@ -81,22 +96,24 @@ class DabPlusEncoder(nn.Module):
         there is none; the CPU takes device="cpu").  dtype: float64 (the
         exact path) or float32; defaults by device (device.default_dtype)."""
         super().__init__()
-        if cfg.aot in ("sbr", "ps"):
-            raise NotImplementedError(
-                f"aot={cfg.aot!r}: HE-AAC (SBR) and HE-AAC v2 (PS) are not ported yet "
-                "(ROADMAP queue 1, items 10 and 11)")
-        if cfg.aot != "lc":
+        if cfg.aot not in ("lc", "sbr", "ps"):
             raise ValueError(f"unknown aot {cfg.aot!r}")
         if pack_on_device:
             raise NotImplementedError("the device AU/superframe/RS pack is not ported yet "
-                                      "(ROADMAP queue 1, item 9); use the host pack")
+                                      "(ROADMAP queue 1, item 11); use the host pack")
+        self.is_sbr = cfg.has_sbr
+        self.is_ps = cfg.aot == "ps"
+        if self.is_ps and cfg.channels != 2:
+            raise ValueError("HE-AAC v2 (PS) requires stereo input")
         device = torch.device(device) if device is not None else default_device()
         dtype = dtype if dtype is not None else default_dtype(device)
         self.cfg = cfg
         self.S = n_streams
         self.dtype = dtype
-        self.is_sbr = self.is_ps = False
-        self.core_channels = cfg.channels
+        # PS downmixes to mono; plain SBR keeps the channel count (stereo
+        # SBR = CPE core + sbr_channel_pair_element)
+        self.core_channels = 1 if self.is_ps else cfg.channels
+        self.ps_nenv = SBR.ps_num_env(cfg.bitrate) if self.is_ps else 0
         self.recover_checks = 0     # host syncs of the crash-recovery check (one per AU)
         self.recoveries = 0         # AUs where crash recovery ran
         rate = cfg.core_rate
@@ -115,7 +132,7 @@ class DabPlusEncoder(nn.Module):
         self.nbands = pt_np["nbands"]
         # avoid-hole tables: bitrate-aware minimum-SNR ladder + spread-energy
         # slopes (adj_thr.cpp / psy_configuration.cpp)
-        ch_bitrate = cfg.bitrate // cfg.channels
+        ch_bitrate = cfg.bitrate // (1 if self.is_ps else cfg.channels)
         self.modify_minsnr = ch_bitrate >= 20000
         spr_np = AT.spread_energy_tables(rate, ch_bitrate)
         pt_np.update(minsnr=AT.min_snr_ladder(ch_bitrate, rate),
@@ -126,15 +143,30 @@ class DabPlusEncoder(nn.Module):
         self.sfb_off_short = AT.sfb_short_offsets(rate)
         self.nsfb_short = len(self.sfb_off_short) - 1
 
-        # bandwidth limit by per-channel bitrate (bandwidth.cpp analogue)
         br_per_ch = cfg.bitrate / cfg.channels
-        col = 1 if cfg.channels == 1 else 2
-        bw_hz = _BW_TAB[0][col]
-        for i in range(len(_BW_TAB) - 1):
-            if _BW_TAB[i][0] <= br_per_ch < _BW_TAB[i + 1][0]:
-                bw_hz = _BW_TAB[i][col]
-                break
-        bw_hz = min(float(bw_hz), rate * 0.5)
+        if self.is_sbr:
+            self.sbr_params = SBR.SbrParams(cfg.sample_rate, bitrate=cfg.bitrate,
+                                            channels=self.core_channels)
+            bw_hz = self.sbr_params.k0 * self.sbr_params.band_hz   # the crossover
+            for k, v in SBR.side_tables(self.sbr_params, dtype, device).items():
+                self.register_buffer("sbr_" + k, v)
+            # 127-tap Kaiser(12) half-band for the 2:1 decimation (~-119 dB stopband)
+            n = np.arange(DS_TAPS) - (DS_TAPS - 1) / 2
+            buf("ds_filter", np.sinc(n / 2.0) / 2.0 * np.kaiser(DS_TAPS, 12.0))
+            if self.is_ps:
+                sub = cfg.au_samples // self.ps_nenv
+                buf("ps_win", np.hanning(sub))
+                buf("ps_masks", SBR.ps_band_masks(sub, cfg.sample_rate))
+        else:
+            self.sbr_params = None
+            # bandwidth limit by per-channel bitrate (bandwidth.cpp analogue)
+            col = 1 if cfg.channels == 1 else 2
+            bw_hz = _BW_TAB[0][col]
+            for i in range(len(_BW_TAB) - 1):
+                if _BW_TAB[i][0] <= br_per_ch < _BW_TAB[i + 1][0]:
+                    bw_hz = _BW_TAB[i][col]
+                    break
+            bw_hz = min(float(bw_hz), rate * 0.5)
         if cfg.bandwidth > 0:
             bw_hz = min(float(cfg.bandwidth), rate * 0.5)
         self.max_sfb = int(np.searchsorted(self.sfb_off * rate / (2 * AT.N), bw_hz)) - 1
@@ -216,9 +248,12 @@ class DabPlusEncoder(nn.Module):
                 "length_code_lo": mid_band - start_band,
                 "length_code_merged": self.nbands - start_band,
             }
-        self.packer = SuperframePacker(cfg.subch, cfg.sample_rate, self.core_channels)
+        self.packer = SuperframePacker(cfg.subch, cfg.sample_rate, self.core_channels,
+                                       sbr=self.is_sbr, ps=self.is_ps)
         # the superframe is a hard byte budget; a 1/16 slice of every AU's
-        # share is withheld as the cross-superframe reservoir (FIL when unused)
+        # share is withheld as the cross-superframe reservoir (FIL when unused).
+        # The SBR FIL element of every AU is counted on the device
+        # (sbr.payload_bits) and taken from the superframe's core budget.
         pad_bits = (cfg.pad_len + 3) * 8 if cfg.pad_len else 0
         base_au = self.packer.payload_bits() // cfg.num_aus - pad_bits
         reserve_au = base_au // 16
@@ -252,8 +287,79 @@ class DabPlusEncoder(nn.Module):
               "pre_flag": torch.zeros((S,), dtype=torch.bool, device=dev),
               # calcWeighting's per-channel lastEnFacPatch
               "wgt_last": torch.zeros((S, ch), dtype=torch.bool, device=dev)}
+        if self.is_sbr:
+            # decimator, QMF and SBR-delay histories of the (downmixed) stream
+            st["ds_hist"] = torch.zeros((S, ch, DS_TAPS - 1), dtype=dt, device=dev)
+            st["qmf_hist"] = torch.zeros((S, ch, 576), dtype=dt, device=dev)
+            st["sbr_hist"] = torch.zeros((S, ch, SBR_SHIFT), dtype=dt, device=dev)
+        if self.is_ps:
+            st["ps_hist"] = torch.zeros((S, 2, PS_SHIFT), dtype=dt, device=dev)
         st.update(BS.init_state(S, self.cfg.channels, dt, dev))
         return st
+
+    def sbr_tables(self):
+        """The side_tables of sbr_side_analysis, over the buffers."""
+        return {k: getattr(self, "sbr_" + k)
+                for k in ("qmf", "bh", "bn", "bmax", "sbr_mask", "patch_src")}
+
+    def _ps_analysis(self, x, state):
+        """HE-AAC v2: the IID/ICC parameters of each AU's application span
+        (PS_SHIFT ahead of the coded AU, ps_nenv sub-windows) and the
+        energy-compensated mono downmix.  x: [S, 2, n] delayed stream.
+        Returns (mono [S, 1, n], state', PS outputs [S, nau, ...])."""
+        S, _, n = x.shape
+        nau, ne = self.cfg.num_aus, self.ps_nenv
+        x_ps = torch.cat([state["ps_hist"], x[..., :-PS_SHIFT]], -1)
+        state = dict(state, ps_hist=x[..., -PS_SHIFT:])
+        aus = x_ps.reshape(S, 2, nau, ne, n // (nau * ne)).permute(2, 0, 3, 1, 4)
+        iid, icc, iid_fine, use_fine = SBR.iid_parameters(
+            aus[..., 0, :], aus[..., 1, :], self.cfg.sample_rate, self.ps_win,
+            self.ps_masks)                                    # [nau, S, ne, 20]
+        if ne > 1:
+            # static-image stabilisation: per band, envelope estimates that
+            # agree within `tol` steps collapse to their rounded mean
+            def stab(v, tol):
+                spread = v.amax(-2, keepdim=True) - v.amin(-2, keepdim=True)
+                mean = torch.round(v.to(self.dtype).mean(-2, keepdim=True)).to(v.dtype)
+                return torch.where(spread <= tol, mean.expand(v.shape), v)
+            iid = stab(iid, 1)
+            iid_fine = stab(iid_fine, 2)
+        out = {"ps_iid": iid.movedim(0, 1), "ps_icc": icc.movedim(0, 1),
+               "ps_iid_fine": iid_fine.movedim(0, 1),
+               # one iid_mode per frame: fine when any envelope needs the range
+               "ps_fine": use_fine.any(-1).movedim(0, 1)}
+        m = 0.5 * (x[:, 0:1] + x[:, 1:2])
+        e_lr = (x[:, 0:1] * x[:, 0:1] + x[:, 1:2] * x[:, 1:2]).sum(-1, keepdim=True)
+        e_m = (m * m).sum(-1, keepdim=True)
+        g = torch.sqrt(0.5 * e_lr / e_m.clamp(min=1e-3)).clamp(1.0, 2.0)
+        return m * g, state, out
+
+    def _sbr_analysis(self, x, state, ps_out):
+        """HE-AAC: the SBR side data of the stream delayed by SBR_SHIFT
+        (stereo coupling chosen per AU), the FIL size of every AU as the
+        reference counts it (with the PS extension when ps_out holds one;
+        sbr.HDR_BITS) and the 2:1 half-band
+        decimation with carried history (a stride-2 conv1d: no gathered
+        copy of the input).  x: [S, ch, n].  Returns (core-rate x
+        [S, ch, n/2], state', side outputs, FIL bits [S, nau] int32)."""
+        S, ch, n = x.shape
+        nau = self.cfg.num_aus
+        x_sbr = torch.cat([state["sbr_hist"], x[..., :-SBR_SHIFT]], -1)
+        side, qmf_hist = SBR.sbr_side_analysis(x_sbr, state["qmf_hist"], self.sbr_params,
+                                               nau, self.sbr_tables())
+        if ch == 2:
+            side = SBR.apply_coupling(side, self.sbr_params)
+        ps_bits = None
+        if ps_out:
+            ps_bits = SBR.ps_data_bits(ps_out["ps_iid"], ps_out["ps_iid_fine"],
+                                       ps_out["ps_fine"], ps_out["ps_icc"])
+        sbr_bits = SBR.payload_bits(side, self.sbr_params, nau, ps_bits=ps_bits)
+        # y[m] = sum_k h[k] xx[2m + k]
+        xx = torch.cat([state["ds_hist"], x], -1)
+        y = F.conv1d(xx.reshape(S * ch, 1, -1), self.ds_filter.view(1, 1, -1), stride=2)
+        state = dict(state, sbr_hist=x[..., -SBR_SHIFT:], qmf_hist=qmf_hist,
+                     ds_hist=xx[..., -(DS_TAPS - 1):])
+        return y.reshape(S, ch, n // 2), state, side, sbr_bits
 
     def forward(self, state, pcm):
         return self._superframe_step(state, pcm)
@@ -263,12 +369,20 @@ class DabPlusEncoder(nn.Module):
         [S, nau, ...]).  One AU of delay (state["pend"]) gives block
         switching a true look-ahead granule."""
         cfg, dt = self.cfg, self.dtype
-        S, ch, _ = pcm.shape
+        S = pcm.shape[0]
         nau, N = cfg.num_aus, AT.N
         x_new = pcm.to(dt)
         wseq, state = BS.block_switch(x_new, state, cfg.au_samples // 8)   # [nau, S]
         x = torch.cat([state["pend"], x_new[..., :-cfg.au_samples]], -1)
         state = dict(state, pend=x_new[..., -cfg.au_samples:])
+        sbr_out, total = {}, nau * self.budget_au
+        if self.is_ps:
+            x, state, sbr_out = self._ps_analysis(x, state)
+        if self.is_sbr:
+            x, state, side, sbr_bits = self._sbr_analysis(x, state, sbr_out)
+            sbr_out.update(side, sbr_bits=sbr_bits)
+            total = total - sbr_bits.sum(1)          # the core's share of the superframe
+        ch = x.shape[1]
         grans = x.reshape(S, ch, nau, N).permute(2, 0, 1, 3)              # [nau, S, ch, 960]
         prevs = torch.cat([state["prev"][None], grans[:-1]], 0)
         max_sfb = torch.full((S,), self.max_sfb, dtype=torch.int32, device=x.device)
@@ -282,7 +396,7 @@ class DabPlusEncoder(nn.Module):
         se_win = torch.cat([se_prev, se_au], -1)
         hard_au = (se_win.amax(-1) > 32.0 * (se_win.amin(-1) + 1.0)).any(-1)
         w = 1.0 + 0.5 * hard_au.to(dt)                                     # [nau, S]
-        budgets = (nau * self.budget_au * (w / w.sum(0))).to(torch.int32)
+        budgets = (total * (w / w.sum(0))).to(torch.int32)
 
         pt, short_ctx = self.tables()
         leftover = state["bitres"].clamp(max=self.bitres_max)
@@ -319,6 +433,7 @@ class DabPlusEncoder(nn.Module):
                          "tns_idx_lo": o["tns_idx_lo"].to(torch.int8),
                          "tns_len": o["tns_len"].to(torch.int8), "wseq": seq.to(torch.int8)})
         out = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}   # [S, nau, ...]
+        out.update(sbr_out)
         new_state = dict(state, prev=grans[-1], bitres=leftover.clamp(max=self.bitres_max),
                          thr_nm1=thr_nm1, pre_flag=pre_flag, wgt_last=wgt_last)
         return new_state, out
@@ -362,20 +477,50 @@ class DabPlusEncoder(nn.Module):
             return native.dabplus_pack_batch(self, out, pads, add_rs)
         frames = []
         for s in range(self.S):
-            aus = []
-            for a in range(self.cfg.num_aus):
-                bw = self.write_au(out, s, a)
-                if pads is not None and pads[s][a]:
-                    write_dse(bw, pads[s][a])
-                aus.append(bw)
+            aus = [self.write_au(out, s, a, pads[s][a] if pads is not None else None)
+                   for a in range(self.cfg.num_aus)]
             frames.append(self.packer.assemble(aus, add_rs=add_rs))
         return frames
 
-    def write_au(self, out, s, a):
+    def write_au(self, out, s, a, pad=None, sbr=True):
         """Stream s's AU a of the numpy step outputs through the Python AU
-        writer (no X-PAD).  Returns the bit writer; its length in bits plus
-        10 (ID_END and the byte-align allowance) is what the rate loop
-        counted in out["bits"][s, a]."""
+        writer: the core (SCE/CPE), the X-PAD bytes `pad` as a DSE, and for
+        HE-AAC the SBR FIL element (with PS) unless sbr=False.  Returns the
+        bit writer.  The core alone, in bits plus 10 (ID_END and the
+        byte-align allowance), is what the rate loop counted in
+        out["bits"][s, a]; the FIL element is sbr.payload_bits with
+        hdr_bits=sbr.HDR_BITS_WRITTEN (out["sbr_bits"] is the reference's
+        count, which can be a byte or two off it)."""
+        bw = self._write_core(out, s, a)
+        if pad:
+            write_dse(bw, pad)
+        if self.is_sbr and sbr:
+            self._write_sbr(bw, out, s, a)
+        return bw
+
+    def _write_sbr(self, bw, out, s, a):
+        env, env2 = out["sbr_env"][s, a], out["sbr_env2"][s, a]
+        tr, nq, tg = out["sbr_transient"][s, a], out["sbr_noise_q"][s, a], out["sbr_tgrid"][s, a]
+        invf, ah = out["sbr_invf"][s, a], out["sbr_addharm"][s, a]
+        stereo = self.core_channels == 2
+
+        def envs(c):
+            # transient AUs: 2-envelope grid at 3.0 dB; else one envelope at 1.5 dB
+            return [env2[c, 0], env2[c, 1]] if tr[c] else [env[c]]
+        kw = {}
+        if self.is_ps:
+            fine = bool(out["ps_fine"][s, a])
+            kw = {"ps_iid": out["ps_iid_fine" if fine else "ps_iid"][s, a],
+                  "ps_icc": out["ps_icc"][s, a], "ps_fine": fine}
+        if stereo:
+            kw = {"envs_r": envs(1), "invf_r": invf[1], "noise_vals_r": nq[1],
+                  "add_harm_r": ah[1], "grid_idx_r": int(tg[1]) if tr[1] else None,
+                  "coupled": bool(out["sbr_cpl"][s, a])}
+        SBR.write_sbr_payload(bw, envs(0), noise_vals=nq[0], params=self.sbr_params,
+                              write_header=a == 0, invf=invf[0], add_harm=ah[0],
+                              grid_idx=int(tg[0]) if tr[0] else None, **kw)
+
+    def _write_core(self, out, s, a):
         tns = None
         if self.tns_cfg is not None:
             tns = [(bool(out["tns_en"][s, a, c]), int(out["tns_order"][s, a, c]),
