@@ -1,12 +1,16 @@
 """Time the psy-1 CUDA kernels on one card against an earlier version of
 their sources, in turns.
 
-    python -m odr_audioenc_tpu_torch.bench_psy1_kernels --old DIR [--rows 4096] [--out FILE]
+    python -m odr_audioenc_tpu_torch.bench_psy1_kernels --old DIR [--old-tables current]
+                                                        [--rows 4096] [--out FILE]
 
 Run from the root of a checkout, on a machine with one NVIDIA card.  DIR
 holds tonal_walk.cu, tonal_noise.cu and psy1_tonal.cuh of the earlier
 version, with the C interface it had before the walk table (`runs` a [512]
 int32 run table), e.g. from `git show <commit>:odr_audioenc_tpu_torch/csrc/<file>`.
+With --old-tables current, DIR's sources have this tree's C interface (the
+walk table and the noise geometry's table) and only the kernels' device time
+and agreement are compared: the wrapper is the same.
 Both versions are built with kernels/build.py's nvcc flags.
 
 On psy-1 spectra of music-like PCM at B rows (the MP2 main path's B = 2 S),
@@ -121,6 +125,9 @@ def host_us(call, calls=1000):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", required=True, help="directory with the earlier kernel sources")
+    ap.add_argument("--old-tables", choices=("runs", "current"), default="runs",
+                    help="the table argument the earlier sources take: the [512] run table, "
+                         "or this tree's walk and noise tables")
     ap.add_argument("--rows", type=int, default=4096)
     ap.add_argument("--out", help="also write the JSON line to this file")
     args = ap.parse_args()
@@ -176,9 +183,11 @@ def main():
                 raise RuntimeError(f"launch failed: cudaError {rc}")
         return launch
 
-    launchers = {("old", "tonal_walk"): walk(old["tonal_walk"][0], runs_old),
+    same_c = args.old_tables == "current"
+    launchers = {("old", "tonal_walk"): walk(old["tonal_walk"][0], walk_tab if same_c else runs_old),
                  ("new", "tonal_walk"): walk(new["tonal_walk"], walk_tab),
-                 ("old", "tonal_noise"): noise(old["tonal_noise"][0], runs_old),
+                 ("old", "tonal_noise"): noise(old["tonal_noise"][0],
+                                               noise_tab if same_c else runs_old),
                  ("new", "tonal_noise"): noise(new["tonal_noise"], noise_tab)}
 
     # agreement with the plain version, both versions, on every input set
@@ -240,10 +249,11 @@ def main():
         if rc:
             raise RuntimeError(f"launch failed: cudaError {rc}")
 
-    host = {"old tonal_walk": host_us(old_walk_call),
-            "new tonal_walk": host_us(lambda: K.tonal_walk(p, c)),
-            "old tonal_noise": host_us(old_noise_call),
+    host = {"new tonal_walk": host_us(lambda: K.tonal_walk(p, c)),
             "new tonal_noise": host_us(lambda: K.tonal_noise(p, c, e, *uniform))}
+    if not same_c:
+        host.update({"old tonal_walk": host_us(old_walk_call),
+                     "old tonal_noise": host_us(old_noise_call)})
 
     result = {"card": card, "rows": B, "ptxas": logs, "agreement": agree, "host_us_per_call": host,
               "kernels": {}}

@@ -5,12 +5,16 @@ odr_audioenc_tpu/bitpack.py).
    offsets are an exclusive cumsum, each slot adds its <= `spans`
    overlapping bytes into the buffer with an integer scatter-add.  Distinct
    slots never share bits, so integer add == bitwise or.
- - GF(2) CRCs (``CrcTable``/``crc_device``): for a message of L bits
+ - GF(2) CRCs (``CrcTable``/``crc_device``/``crc_fixed``): for a message of L bits
    left-aligned in a P-bit buffer, crc = (M(x)*x^w mod g) * x^(L-P)
    + init*x^L (mod g).  The fixed-alignment reduction is an integer
    bit-matrix product reduced mod 2 (sums are at most P, exact in int32);
    the per-length shift and init terms are one row of a table picked by
-   index.
+   index.  ``crc_fixed`` (a whole buffer of fixed length) and the RS parity of
+   ``rs_bit_matrix`` take the same reduction as a float32 matmul of 0/1
+   bits against a 0/1 matrix: both operands are exact in any float format
+   and the sums stay below 2^24, so the product is exact whatever the
+   matmul precision.
 
 These mirror the byte formats of libtoolame-dab/bitstream.c:46-150.
 """
@@ -32,7 +36,9 @@ def pack_groups(groups, n_bytes, raw=None, bit_base=None):
       can touch.  Max width 24 bits.
     raw: optional (byte_idx [..,m], byte_val [..,m]) pairs placed directly;
       indices outside [0, n_bytes) are dropped.
-    bit_base: optional [..] starting bit offset (default 0).
+    bit_base: optional [..] starting bit offset (default 0).  A slot that
+      starts before bit 0 is dropped whole, one that runs past the end loses
+      the bytes past it.
     Returns (payload [.., n_bytes] int64 0..255, total_bits [..] int64)."""
     widths = torch.cat([g[0].long() for g in groups], dim=-1)
     values = torch.cat([_mask_to_width(g[1].long(), g[0].long()) for g in groups], dim=-1)
@@ -57,7 +63,7 @@ def pack_groups(groups, n_bytes, raw=None, bit_base=None):
             sh = e - 8 * (bt + 1)
             c = torch.where(sh >= 0, (v >> sh.clamp(0, 24)) & 0xFF,
                             (v << (-sh).clamp(0, 8)) & 0xFF)
-            ok = (w > 0) & (bt <= last_b) & (bt < n_bytes)
+            ok = (w > 0) & (bt <= last_b) & (b0 >= 0) & (bt < n_bytes)
             out.scatter_add_(-1, torch.where(ok, bt, n_bytes), torch.where(ok, c, 0))
     if raw:
         idx = torch.cat([r[0].long() for r in raw], dim=-1)
@@ -163,3 +169,32 @@ def crc_device(buf, nbits, tabs, width):
     out = ((c0[..., :, None] * mul).sum(dim=-2) + initv) & 1
     sh = torch.arange(width - 1, -1, -1, device=buf.device)
     return (out.long() << sh).sum(dim=-1)
+
+
+def crc_fixed(buf, tab_R, width, init_contrib):
+    """CRC over a fixed-length message (the whole buffer): one product of
+    its bits with tab_R, a float32 tensor of CrcTable(poly, width, ., P).R
+    with P = 8*nb; init_contrib = _crc_ref(0, P, init, poly, width) (a host
+    scalar).  buf: [.., nb] integer bytes.  Returns crc [..] int32.  The
+    operands are 0/1 and the sums at most P < 2^24, so the float product
+    is exact; no [.., P, width] intermediate is built."""
+    sh = torch.arange(7, -1, -1, device=buf.device, dtype=torch.int32)
+    bits = ((buf[..., None].to(torch.int32) >> sh) & 1).to(torch.float32)
+    c0 = torch.round(bits.reshape(*buf.shape[:-1], -1) @ tab_R).to(torch.int32) & 1
+    wsh = torch.arange(width - 1, -1, -1, device=buf.device, dtype=torch.int32)
+    return (c0 << wsh).sum(dim=-1, dtype=torch.int32) ^ init_contrib
+
+
+def rs_bit_matrix(rs):
+    """GF(2) bit matrix [kk*8, nroots*8] (numpy int8) of a ReedSolomon
+    instance: parity bits as a linear function of data bits (GF(256)-linear
+    => GF(2)-linear).  Data bit (i, b) = byte i bit b (MSB-first); parity
+    likewise."""
+    kk, nr = rs.kk, rs.nroots
+    M = np.zeros((kk * 8, nr * 8), np.int8)
+    for b in range(8):
+        v = 1 << (7 - b)  # MSB-first bit b of a byte
+        par = rs.gf.mul(rs.G, v)  # [kk, nroots] parity bytes for data=v at i
+        bits = ((par[:, :, None] >> np.arange(7, -1, -1)) & 1)  # [kk, nr, 8]
+        M[np.arange(kk) * 8 + b] = bits.reshape(kk, nr * 8)
+    return M

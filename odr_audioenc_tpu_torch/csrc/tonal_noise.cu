@@ -118,6 +118,11 @@ __device__ __forceinline__ void load_tables(WalkTables& t, NoiseTables& nt,
 
 __device__ __forceinline__ int sbyte_of(const uint4& v, int i) { return (int)(int8_t)byte_of(v, i); }
 
+// 10^(x/10) as the plain version computes it, torch.pow(10, 0.1 x): the band
+// centre below is a truncation with no rounding margin, so the noise sums keep
+// the plain version's rounding of every term (the tonal stage keeps exp2f).
+__device__ __forceinline__ float lin_of_db_pow(float x) { return powf(10.0f, 0.1f * x); }
+
 // The noise labelling of one walked row (see the top of this file): writes
 // power' and both member masks of the row.
 __device__ __forceinline__ void noise_row(Stage& st, NoiseScratch& w, const NoiseTables& nt,
@@ -147,7 +152,7 @@ __device__ __forceinline__ void noise_row(Stage& st, NoiseScratch& w, const Nois
         const float e = i % 4 == 0 ? q.x : i % 4 == 1 ? q.y : i % 4 == 2 ? q.z : q.w;
         // a usable bin is neither zeroed nor accepted: its power' is its power
         const bool u = !((typ >> i) & 1u) && pw[i] != DBMIN;
-        const float x0 = u ? lin_of_db(pw[i]) : 0.0f;
+        const float x0 = u ? lin_of_db_pow(pw[i]) : 0.0f;
         const float x1 = u ? cf * e : 0.0f;
         const float x2 = x1 * (bin0 + (float)i);
         usable |= (u ? 1u : 0u) << i;

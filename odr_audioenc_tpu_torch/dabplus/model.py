@@ -10,8 +10,11 @@ analysis of the delayed full-rate stream, its payload size and the
 rate-controlled quantization of encode.encode_au, carrying the bit
 reservoir, the pre-echo history and the weighting flag from AU to AU.  The
 integer decisions go to the port's host packer (host/: the native batch
-packer, or the Python AU writer) exactly as the JAX encoder's do.
+packer, or the Python AU writer) exactly as the JAX encoder's do; with
+pack_on_device=True the step packs every AU, the superframe, its CRCs and
+the RS parity itself (aupack.py) and returns the wire bytes as one tensor.
 """
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +26,7 @@ from .. import convert
 from ..device import default_device, default_dtype
 from ..host import native
 from ..host.aacpack import SuperframePacker, write_au, write_dse
+from . import aupack
 from . import blockswitch as BS
 from . import encode as E
 from . import sbr as SBR
@@ -94,13 +98,12 @@ class DabPlusEncoder(nn.Module):
                  pack_on_device=False):
         """device: the card by default (device.default_device raises where
         there is none; the CPU takes device="cpu").  dtype: float64 (the
-        exact path) or float32; defaults by device (device.default_dtype)."""
+        exact path) or float32; defaults by device (device.default_dtype).
+        pack_on_device: the step emits the packed superframes (one `wire`
+        output) in place of the decisions for the host packer."""
         super().__init__()
         if cfg.aot not in ("lc", "sbr", "ps"):
             raise ValueError(f"unknown aot {cfg.aot!r}")
-        if pack_on_device:
-            raise NotImplementedError("the device AU/superframe/RS pack is not ported yet "
-                                      "(ROADMAP queue 1, item 11); use the host pack")
         self.is_sbr = cfg.has_sbr
         self.is_ps = cfg.aot == "ps"
         if self.is_ps and cfg.channels != 2:
@@ -259,6 +262,9 @@ class DabPlusEncoder(nn.Module):
         reserve_au = base_au // 16
         self.budget_au = base_au - reserve_au
         self.bitres_max = reserve_au * cfg.num_aus
+        # the device pack's tables, built once on the encoder's device (its
+        # construction checks the pack bound against the worst recovered AU)
+        self.aupack_ctx = aupack.AuPackCtx(self) if pack_on_device else None
 
     @property
     def device(self):
@@ -361,13 +367,17 @@ class DabPlusEncoder(nn.Module):
                      ds_hist=xx[..., -(DS_TAPS - 1):])
         return y.reshape(S, ch, n // 2), state, side, sbr_bits
 
-    def forward(self, state, pcm):
-        return self._superframe_step(state, pcm)
+    def forward(self, state, pcm, pad_buf=None, pad_len=None):
+        return self._superframe_step(state, pcm, pad_buf, pad_len)
 
-    def _superframe_step(self, state, pcm):
+    def _superframe_step(self, state, pcm, pad_buf=None, pad_len=None):
         """pcm: [S, ch, num_aus*au_samples] int16 -> (state', outputs
         [S, nau, ...]).  One AU of delay (state["pend"]) gives block
-        switching a true look-ahead granule."""
+        switching a true look-ahead granule.  With the device pack the
+        outputs are the single leaf `wire` [S, 120*subch + 4*nau] uint8 (the
+        superframe, then each AU's byte length and content bits as low and
+        high bytes); pad_buf [S, nau, pad_len] / pad_len [S, nau] are its
+        X-PAD bytes per AU (the host pack takes them in pack_superframes)."""
         cfg, dt = self.cfg, self.dtype
         S = pcm.shape[0]
         nau, N = cfg.num_aus, AT.N
@@ -399,6 +409,10 @@ class DabPlusEncoder(nn.Module):
         budgets = (total * (w / w.sum(0))).to(torch.int32)
 
         pt, short_ctx = self.tables()
+        ctx = self.aupack_ctx
+        sbr_w = sbr_v = None
+        if ctx is not None and self.is_sbr:
+            sbr_w, sbr_v = aupack.sbr_slot_groups(ctx, sbr_out)         # [S, nau, K]
         leftover = state["bitres"].clamp(max=self.bitres_max)
         thr_nm1, pre_flag, wgt_last = state["thr_nm1"], state["pre_flag"], state["wgt_last"]
         outs = []
@@ -423,6 +437,19 @@ class DabPlusEncoder(nn.Module):
             self.recoveries += o["recovered"]
             leftover = ((budget - o["bits"]).clamp(min=0) + (leftover - allow)).to(torch.int32)
             thr_nm1, pre_flag, wgt_last = o["thr_nm1"], o["pre_flag"], o["last_patch"]
+            if ctx is not None:
+                # pack the whole AU on the device: the loop keeps only the
+                # content bytes, the bit count and the CRC reduction
+                fr = {k: o[k] for k in aupack.CORE_KEYS if k != "wseq"}
+                fr["wseq"] = seq
+                groups = aupack.au_content_groups(
+                    ctx, fr, a == nau - 1,
+                    pad_buf=pad_buf[:, a] if pad_buf is not None else None,
+                    pad_len=pad_len[:, a] if pad_len is not None else None,
+                    sbr_group=(sbr_w[:, a], sbr_v[:, a], 4) if sbr_w is not None else None)
+                aubuf, abits, c1 = aupack.pack_au_content(ctx, groups)
+                outs.append({"aubuf": aubuf.to(torch.uint8), "au_bits": abits, "crc_part": c1})
+                continue
             # narrow dtypes for the device-to-host copy; the packer widens
             outs.append({"q": o["q"].to(torch.int16), "gains": o["gains"].to(torch.int16),
                          "books": o["books"].to(torch.uint8), "bits": o["bits"].to(torch.int32),
@@ -433,7 +460,17 @@ class DabPlusEncoder(nn.Module):
                          "tns_idx_lo": o["tns_idx_lo"].to(torch.int8),
                          "tns_len": o["tns_len"].to(torch.int8), "wseq": seq.to(torch.int8)})
         out = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}   # [S, nau, ...]
-        out.update(sbr_out)
+        if ctx is not None:
+            sf, lens = aupack.assemble_superframes(ctx, out["aubuf"], out["au_bits"],
+                                                   out["crc_part"])
+            # one output leaf, one device-to-host copy: superframe bytes |
+            # au_len lo, hi | au_bits lo, hi, [S, 120*subch + 4*nau] uint8
+            ab = out["au_bits"]
+            tail = torch.cat([lens & 0xFF, (lens >> 8) & 0xFF, ab & 0xFF, (ab >> 8) & 0xFF],
+                             dim=1).to(torch.uint8)
+            out = {"wire": torch.cat([sf, tail], dim=1)}
+        else:
+            out.update(sbr_out)
         new_state = dict(state, prev=grans[-1], bitres=leftover.clamp(max=self.bitres_max),
                          thr_nm1=thr_nm1, pre_flag=pre_flag, wgt_last=wgt_last)
         return new_state, out
@@ -459,7 +496,12 @@ class DabPlusEncoder(nn.Module):
         optional [S][num_aus] X-PAD byte strings (sent as DSE ancillary
         data).  Returns (state, [S] superframe bytes); with pack=False the
         second element is the step's output dict, for pack_superframes."""
-        state, out = self._superframe_step(state, torch.as_tensor(pcm, device=self.device))
+        args = ()
+        if self.aupack_ctx is not None and self.cfg.pad_len:
+            args = tuple(torch.as_tensor(x, device=self.device) for x in aupack.pad_arrays(
+                pads, self.S, self.cfg.num_aus, self.cfg.pad_len))
+        state, out = self._superframe_step(state, torch.as_tensor(pcm, device=self.device),
+                                           *args)
         if not pack:
             self._pack_args = (add_rs, pads)
             return state, out
@@ -473,6 +515,25 @@ class DabPlusEncoder(nn.Module):
         if add_rs is None:
             add_rs, pads = getattr(self, "_pack_args", (True, None))
         out = convert.to_numpy(out)
+        if "wire" in out:
+            # device-packed superframes: slice the rows; the core only when
+            # add_rs is off
+            nau = self.cfg.num_aus
+            w = out["wire"]
+            t = w[:, -4 * nau:].astype(np.int32)
+            ab = t[:, 2 * nau:3 * nau] | (t[:, 3 * nau:] << 8)
+            over = ab > 8 * self.aupack_ctx.maxcb
+            if over.any():
+                # unreachable while the rate loop's crash recovery holds its
+                # bound (AuPackCtx checks it at construction).  If it ever
+                # fires, that stream's superframe is corrupt (a decoder drops
+                # it on its AU CRC): warn and keep the batch alive.
+                print(f"dabplus: AU content exceeds the device pack bound "
+                      f"({8 * self.aupack_ctx.maxcb} bits) on streams "
+                      f"{np.flatnonzero(over.any(axis=1)).tolist()} - emitting corrupt "
+                      f"superframes for those streams", file=sys.stderr)
+            n = self.packer.total if not add_rs else w.shape[1] - 4 * nau
+            return [w[s, :n].tobytes() for s in range(self.S)]
         if use_native:
             return native.dabplus_pack_batch(self, out, pads, add_rs)
         frames = []

@@ -527,7 +527,9 @@ void write_sbr_payload(BitWr &bw, const int32_t *const *envs_l, int nl,
   if (!ps_iid) {
     sbr.put(0, 1);
   } else {
-    uint8_t pbuf[64] = {0};
+    /* ps_data reaches 13 + 4 * (2 + 20 * (18 + 14)) bits at 4 envelopes with
+     * the longest codes: 64 bytes held only what signals produce */
+    uint8_t pbuf[512] = {0};
     BitWr ps(pbuf);
     int ps_bits = 2 + write_ps_data(ps, ps_iid, ps_icc, ps_fine, P[11]);
     int ext_size = (ps_bits + 7) / 8;

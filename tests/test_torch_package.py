@@ -335,10 +335,15 @@ def test_entry_points_default_to_the_card(make):
 
 @pytest.mark.parametrize("kwargs,what", [({"pack_on_device": True}, "item 11")])
 def test_dabplus_unported_paths_raise(kwargs, what):
-    """The device pack is not ported yet: it raises NotImplementedError
-    naming its ROADMAP item, before building anything."""
+    """No DAB+ path is left unported: the device pack (ROADMAP item 11, which
+    raised NotImplementedError until it landed) builds its tables at
+    construction, and what the encoder does not support still raises."""
     from odr_audioenc_tpu_torch.dabplus import model
     cfg = model.DabPlusConfig(48000, 12, 2, aot=kwargs.get("aot", "lc"))
-    with pytest.raises(NotImplementedError, match=what):
-        model.DabPlusEncoder(cfg, 1, device="cpu",
-                             pack_on_device=kwargs.get("pack_on_device", False))
+    enc = model.DabPlusEncoder(cfg, 1, device="cpu",
+                               pack_on_device=kwargs.get("pack_on_device", False))
+    assert enc.aupack_ctx is not None, what
+    assert model.DabPlusEncoder(cfg, 1, device="cpu").aupack_ctx is None
+    with pytest.raises(ValueError, match="unknown aot"):
+        model.DabPlusEncoder(model.DabPlusConfig(48000, 12, 2, aot="eld"), 1, device="cpu",
+                             pack_on_device=True)
