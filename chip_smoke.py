@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MP2 and DAB+ (AAC-LC, HE-AAC, HE-AAC v2) main
-paths on one CUDA card and check them.
+paths, its fleet runtime and its CLIs on one CUDA card and check them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card):
 
@@ -30,7 +30,7 @@ Phases (any failure exits non-zero and prints no result):
      music_48s_128_j_psy2 and tones_48s_192_s_psy3, byte-exact.
   4. main path at full width: S=2048 streams, 48 kHz stereo 128k joint,
      f32 fast path, pack_on_device="frame", music-like PCM with per-stream
-     offsets; 3 warm-up + 20 timed steps through Mp2Packer.emit.  Every
+     offsets; 3 warm-up + 10 timed steps through Mp2Packer.emit.  Every
      frame parses with a valid CRC, the frame count is right, the kernel
      ran once per step, and the first 8 streams re-encoded on the CPU (the
      plain version) agree: >= 90% of frames with the same allocation, and
@@ -47,7 +47,7 @@ Phases (any failure exits non-zero and prints no result):
      steps each): every frame CRC-valid, step time printed.
   6. DAB+ AAC-LC main path at full width: 48 kHz stereo 96 kbps (subch 12,
      the lc_96 shape), S=2048 streams, f32, music-like PCM at per-stream
-     offsets; 2 warm-up + 5 timed superframes through
+     offsets; 2 warm-up + 3 timed superframes through
      encode_superframes(pack=False) and pack_superframes(add_rs=True) with
      the native host packer (which must have built).  Every superframe is
      120*subch bytes and passes RS, the firecode and validate_superframe;
@@ -61,7 +61,7 @@ Phases (any failure exits non-zero and prints no result):
      against the f64 port on the CPU: >= 99% of AUs with identical integer
      decisions and every superframe valid.
   7. HE-AAC (SBR) at full width: 48 kHz mono 48 kbps (subch 6, the sbr_48
-     shape), S=2048, f32, the left channel of phase 6's music, 2 warm-up + 5
+     shape), S=2048, f32, the left channel of phase 6's music, 2 warm-up + 3
      timed superframes through encode_superframes(pack=False) and the
      native pack_superframes(add_rs=True).  Every superframe is 720 bytes
      and passes RS, the firecode and validate_superframe; on the first 8
@@ -89,7 +89,7 @@ Phases (any failure exits non-zero and prints no result):
      native host packer; the bytes must be equal on all 2,048 streams.  One
      more pack_from_outputs under torch.profiler gives the pack's device
      events and busy time per AU.
-     8b: DabPlusEncoder(pack_on_device=True) over the same 2 warm-up + 5
+     8b: DabPlusEncoder(pack_on_device=True) over the same 2 warm-up + 3
      timed superframes: every superframe is 120*subch bytes and passes RS,
      the firecode, every AU CRC and validate_superframe; the wire's au_len
      equal the AU lengths read from the superframe header; no AU over the
@@ -102,16 +102,37 @@ Phases (any failure exits non-zero and prints no result):
      8d: X-PAD, S=8, pad_len=16, random pads: the device-mode encoder's
      bytes equal the host-mode encoder's through the native host packer.
 
+  9. the runtime's main path, BASELINE config 5 (the JAX bench's fleet_64,
+     bench.py:161-199) through odr_audioenc_tpu_torch.cli.main(["--streams",
+     conf, "--compute-device", "cuda"]): 32 MP2 stations (128/192/96/160k,
+     joint stereo and stereo alternating; psy 1 f32, frame pack, the
+     tonal-walk kernel), 16 DAB+ LC 96k stereo, 8 HE-AAC 48k mono, 8 HE-AAC
+     v2 32k stereo (f32, device pack), 48 kHz, file sinks and stats sockets,
+     3.84 s of music per station (cut from the bench's 30 s: 4 chunks of
+     0.96 s, k = 40 MP2 frames or 8 superframes, and the pass that meets
+     EOF, a chunk of silence; 2 warm-up passes and 3 timed).  Every MP2 frame parses with a valid
+     CRC and every superframe passes RS, the firecode and
+     validate_superframe; tonal_walk launched once per MP2 step and
+     tonal_noise never; the first chunk of every station is byte-equal to
+     its group's encoder run directly on the card.  Prints the fleet's
+     streams x realtime and each group's chunk time and share of the pass.
+  10. the single-stream CLIs on the card (--compute-device cuda): MP2 f64
+     (the exact path) over 8 frames equals music_48s_128_j_psy1.mp2 on the
+     overlap; DAB+ LC 96k, --sbr 48k mono and --ps 32k over 3 superframes
+     are valid; aacenc_cli writes 18 LOAS frames with valid syncwords and
+     lengths.  Neither psy-1 kernel launches (the exact path has no kernel).
+
 The f32 phases 6-7c report how many of the AUs that decide differently on the
 card than on the CPU differ in the core's decisions only, in the SBR/PS side
 data only, and in both.
 
-Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b) sets the launch counts to 0
-just before it and reads them just after; the DAB+ runs must launch neither
-psy-1 kernel.  Every process the script starts (nvcc,
+Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b, 9, 10) sets the launch
+counts to 0 just before it and reads them just after; the DAB+ runs must
+launch neither psy-1 kernel.  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
-and one JSON line with both kernels' figures; the last line is
+and one JSON line with both kernels' figures (with the launches of each
+path that ran them); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package: the port's own host
 packers, RS and validators check every frame.
@@ -128,7 +149,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 S_FULL = 2048
-WARMUP, TIMED = 3, 20
+WARMUP, TIMED = 3, 10      # 3 + 20 until phases 9 and 10 joined the run
 FRAME_S = 1152 / 48000.0
 
 
@@ -499,6 +520,216 @@ def split_text(split):
             f"SBR/PS side data only, {split[2]} in both")
 
 
+def write_wav(path, sig):
+    """sig [ch, n] int16 -> a 48 kHz WAV through the port's writer."""
+    import numpy as np
+    from odr_audioenc_tpu_torch.io.wav import WavWriter
+    w = WavWriter(str(path), 48000, sig.shape[0])
+    w.write(np.ascontiguousarray(sig.T).astype("<i2").tobytes())
+    w.close()
+    return str(path)
+
+
+FLEET_S = 3.84      # seconds of audio per fleet_64 station: 4 chunks of 0.96 s
+
+
+def fleet64_streams(tmp, sig):
+    """BASELINE config 5 (the JAX bench's fleet_64, bench.py:161-199): 32
+    MP2 stations at 128/192/96/160k, joint stereo and stereo alternating; 16
+    DAB+ LC 96k stereo; 8 HE-AAC 48k mono; 8 HE-AAC v2 32k stereo; all 48 kHz,
+    each with a file sink and a stats socket."""
+    wav, wav1 = write_wav(tmp / "in.wav", sig), write_wav(tmp / "in_mono.wav", sig[:1])
+    streams = []
+    for i in range(64):
+        if i < 32:
+            spec = {"codec": "mp2", "bitrate": [128, 192, 96, 160][i % 4], "mode": "js"[i % 2]}
+        elif i < 48:
+            spec = {"codec": "dabplus", "bitrate": 96, "channels": 2}
+        elif i < 56:
+            spec = {"codec": "dabplus", "bitrate": 48, "channels": 1}
+        else:
+            spec = {"codec": "dabplus", "bitrate": 32, "channels": 2}
+        spec.update(rate=48000, input=wav1 if spec.get("channels") == 1 else wav,
+                    output=str(tmp / f"out{i}.bin"), stats=str(tmp / f"stats{i}.sock"))
+        streams.append(spec)
+    return streams
+
+
+def first_chunk_direct(streams, sig, k_of, torch, dev):
+    """Each fleet_64 group's encoder run directly on the card over the
+    first chunk of its stations' PCM: MP2 k + 1 frames through
+    Mp2Packer.emit (the k-th frame's ScF-CRC comes with frame k + 1), DAB+
+    k superframes with the device pack.  Returns {station: bytes}."""
+    import numpy as np
+    from odr_audioenc_tpu_torch import convert
+    from odr_audioenc_tpu_torch.dabplus import model as dmodel
+    from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
+    from odr_audioenc_tpu_torch.mp2 import model
+    want = {}
+    mp2 = [i for i, s in enumerate(streams) if s["codec"] == "mp2"]
+    cfg = model.make_config([{"rate": 48000, "bitrate": streams[i]["bitrate"],
+                              "mode": streams[i]["mode"]} for i in mp2])
+    enc = model.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device=dev,
+                           pack_on_device="frame")
+    packer, state, k = Mp2Packer(cfg), enc.init_state(), k_of["mp2"]
+    for t in range(k + 1):
+        pcm = np.broadcast_to(sig[:, t * 1152:(t + 1) * 1152], (len(mp2), 2, 1152))
+        state, out = enc.encode_step(state, np.ascontiguousarray(pcm))
+        for j, b in enumerate(packer.emit(convert.to_numpy(out))):
+            want[mp2[j]] = want.get(mp2[j], b"") + b
+    for aot, (subch, ch) in (("lc", (12, 2)), ("sbr", (6, 1)), ("ps", (4, 2))):
+        idx = [i for i, s in enumerate(streams)
+               if s["codec"] == "dabplus" and s["bitrate"] == 8 * subch]
+        cfg = dmodel.DabPlusConfig(48000, subch, ch, aot=aot)
+        enc = dmodel.DabPlusEncoder(cfg, len(idx), dtype=torch.float32, device=dev,
+                                    pack_on_device=True)
+        state, k, spf = enc.init_state(), k_of[aot], cfg.num_aus * cfg.au_samples
+        for t in range(k):
+            pcm = np.broadcast_to(sig[:ch, t * spf:(t + 1) * spf], (len(idx), ch, spf))
+            state, frames = enc.encode_superframes(state, np.ascontiguousarray(pcm))
+            for j, f in enumerate(frames):
+                want[idx[j]] = want.get(idx[j], b"") + f
+    return want
+
+
+def phase_fleet(card, kernels, torch, dev):
+    """Phase 9: fleet_64 through the odr-audioenc CLI's --streams on the
+    card.  Returns (tonal_walk launches, tonal_noise launches) of the run."""
+    import numpy as np
+    import tempfile
+    from signals import music_like
+    from odr_audioenc_tpu_torch import cli, fleet
+    from odr_audioenc_tpu_torch.host import mp2parse
+    src = music_like(30)
+    n = int(48000 * FLEET_S)
+    sig = np.tile(src, (1, -(-n // src.shape[1])))[:, :n]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        tmp = Path(tmp)
+        streams = fleet64_streams(tmp, sig)
+        (tmp / "fleet.json").write_text(json.dumps({"streams": streams}))
+        kernels.launches = kernels.noise_launches = 0
+        t0 = time.perf_counter()
+        rc = cli.main(["--streams", str(tmp / "fleet.json"), "--compute-device", "cuda"])
+        wall = time.perf_counter() - t0
+        k_l = (kernels.launches, kernels.noise_launches)
+        check(rc == 0, f"phase 9: cli.main --streams returned {rc}")
+        run = fleet.last_run
+        groups = {g["key"][0] if g["key"][0] == "mp2" else g["key"][-1]: g
+                  for g in run["groups"]}
+        check(sorted(groups) == ["lc", "mp2", "ps", "sbr"] and
+              [groups[a]["streams"] for a in ("mp2", "lc", "sbr", "ps")] == [32, 16, 8, 8],
+              f"phase 9: unexpected grouping {[(g['key'], g['streams']) for g in run['groups']]}")
+        mp2_steps = groups["mp2"]["chunks"] * groups["mp2"]["k"]
+        check(k_l == (mp2_steps, 0), f"phase 9: tonal_walk launched {k_l[0]} times and "
+              f"tonal_noise {k_l[1]} in {mp2_steps} MP2 steps")
+        outs = [(tmp / f"out{i}.bin").read_bytes() for i in range(64)]
+        mp2_frames = [f for i in range(32) for f in mp2parse.split_frames(outs[i])]
+        check(all(len(outs[i]) == (mp2_steps - 1) * 3 * streams[i]["bitrate"]
+                  for i in range(32)), "phase 9: wrong MP2 byte count")
+        check(all_crc_ok(mp2_frames), "phase 9: an MP2 frame fails its CRC")
+        sfs = [outs[i][j:j + 15 * streams[i]["bitrate"]] for i in range(32, 64)
+               for j in range(0, len(outs[i]), 15 * streams[i]["bitrate"])]
+        aot_of = ["mp2"] * 32 + ["lc"] * 16 + ["sbr"] * 8 + ["ps"] * 8
+        check(all(len(outs[i]) == groups[aot_of[i]]["chunks"] * groups[aot_of[i]]["k"] * 15 *
+                  streams[i]["bitrate"] for i in range(32, 64)), "phase 9: wrong DAB+ byte count")
+        check(all_crc_ok(sfs, "_superframe_ok"),
+              "phase 9: a superframe fails RS, its firecode or an AU CRC")
+        k_of = {a: g["k"] for a, g in groups.items()}
+        t1 = time.perf_counter()
+        want = first_chunk_direct(streams, sig, k_of, torch, dev)
+        direct_s = time.perf_counter() - t1
+        frame_bytes = [3 * s["bitrate"] if s["codec"] == "mp2" else 15 * s["bitrate"]
+                       for s in streams]
+        bad = [i for i in range(64) if len(want[i]) != k_of[aot_of[i]] * frame_bytes[i]
+               or not outs[i].startswith(want[i])]
+        check(not bad, f"phase 9: the first chunk of stations {bad} differs from the encoders "
+              f"run directly")
+    # StatsPublisher binds the reference's /tmp/odr-audioenc.<pid>; take it away
+    Path(f"/tmp/odr-audioenc.{os.getpid()}").unlink(missing_ok=True)
+    times = {a: [s + d for s, d in zip(g["step_s"][2:], g["drain_s"][2:])]
+             for a, g in groups.items()}
+    per_pass = {a: statistics.mean(t) for a, t in times.items()}
+    total = sum(per_pass.values())
+    parts = "; ".join(f"{a} S={groups[a]['streams']} k={groups[a]['k']}: "
+                      f"{1000 * per_pass[a]:.1f} ms per chunk (step "
+                      f"{1000 * statistics.mean(groups[a]['step_s'][2:]):.1f} + drain "
+                      f"{1000 * statistics.mean(groups[a]['drain_s'][2:]):.1f}), "
+                      f"{per_pass[a] / total:.1%} of the pass"
+                      for a in ("mp2", "lc", "sbr", "ps"))
+    print(f"phase 9: fleet_64 through cli.main --streams on the card: {run['stations']} "
+          f"stations, {len(mp2_frames)} MP2 frames CRC-valid, {len(sfs)} superframes valid (RS, "
+          f"firecode, AU CRCs); tonal_walk {k_l[0]} launches in {mp2_steps} MP2 steps, "
+          f"tonal_noise {k_l[1]}; first chunk of all 64 stations byte-equal to the encoders run "
+          f"directly ({direct_s:.1f} s); {run['audio_seconds']:.2f} audio-s in "
+          f"{run['wall_s']:.3f} s over {len(times['mp2'])} timed passes = {run['rate']:.2f} "
+          f"streams x realtime, {total:.3f} s per 0.96 s pass; {parts}; whole command "
+          f"{wall:.1f} s [{card}]", flush=True)
+    return k_l
+
+
+def loas_frames(data):
+    """Split a LOAS AudioSyncStream into its frames; fails unless every one
+    starts with the 0x2B7 syncword and the lengths tile the stream."""
+    out, pos = [], 0
+    while pos < len(data):
+        check(pos + 3 <= len(data) and (data[pos] << 3 | data[pos + 1] >> 5) == 0x2B7,
+              f"phase 10: no LOAS syncword at byte {pos}")
+        n = ((data[pos + 1] & 0x1F) << 8 | data[pos + 2]) + 3
+        out.append(data[pos:pos + n])
+        pos += n
+    check(pos == len(data), "phase 10: the LOAS frames overrun the stream")
+    return out
+
+
+def phase_cli(card, kernels, torch):
+    """Phase 10: the single-stream CLIs on the card.  Returns the psy-1
+    kernel launches of the run (the CLI's MP2 is the f64 exact path)."""
+    import numpy as np
+    import tempfile
+    from signals import music_like
+    from odr_audioenc_tpu_torch import aacenc_cli, cli
+    cuda = ["--compute-device", "cuda"]
+    kernels.launches = kernels.noise_launches = 0
+    lines = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        tmp = Path(tmp)
+        nf = 8
+        wav = write_wav(tmp / "golden.wav", music_like(40)[:, :nf * 1152])
+        t0 = time.perf_counter()
+        check(cli.main(["-a", "-i", wav, "-b", "128", "-c", "2", "-r", "48000", "--dabmode",
+                        "j", "-o", str(tmp / "o.mp2")] + cuda) == 0, "phase 10: MP2 rc != 0")
+        got = (tmp / "o.mp2").read_bytes()
+        want = (ROOT / "tests" / "golden" / "music_48s_128_j_psy1.mp2").read_bytes()
+        check(len(got) == (nf - 1) * 384 and got == want[:len(got)],
+              "phase 10: the MP2 CLI's bytes differ from music_48s_128_j_psy1.mp2")
+        lines.append(f"MP2 f64 {nf - 1} frames == the golden ({time.perf_counter() - t0:.1f} s)")
+        sig = music_like(30, seed=21)[:, :3 * 5760]
+        for label, args, ch in (("LC 96k", ["-b", "96"], 2), ("--sbr 48k mono", ["--sbr", "-b",
+                                "48", "-c", "1"], 1), ("--ps 32k", ["--ps", "-b", "32"], 2)):
+            wav = write_wav(tmp / f"in{ch}.wav", sig[:ch])
+            out = tmp / "o.dabp"
+            t0 = time.perf_counter()
+            check(cli.main(args + ["-i", wav, "-o", str(out)] + cuda) == 0,
+                  f"phase 10: {label}: rc != 0")
+            data, n = out.read_bytes(), 15 * int(args[args.index("-b") + 1])
+            check(len(data) == 3 * n and all(_superframe_ok([data[j:j + n] for j in
+                                                             range(0, len(data), n)])),
+                  f"phase 10: {label}: 3 valid superframes expected")
+            lines.append(f"DAB+ {label}: 3 superframes valid ({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        check(aacenc_cli.main(["-r", "96000"] + cuda + [str(tmp / "in2.wav"),
+                                                         str(tmp / "o.loas")]) == 0,
+              "phase 10: aacenc rc != 0")
+        frames = loas_frames((tmp / "o.loas").read_bytes())
+        check(len(frames) == 18, f"phase 10: {len(frames)} LOAS frames for 18 AUs")
+        lines.append(f"aacenc: {len(frames)} LOAS frames ({time.perf_counter() - t0:.1f} s)")
+    k_l = (kernels.launches, kernels.noise_launches)
+    check(k_l == (0, 0), f"phase 10: the CLI launched the psy-1 kernels {k_l}")
+    print(f"phase 10: the CLIs on the card: {'; '.join(lines)}; psy-1 kernel launches {k_l} "
+          f"[{card}]", flush=True)
+    return k_l
+
+
 def main():
     check((ROOT / "odr_audioenc_tpu_torch").is_dir() and (ROOT / "tests" / "golden").is_dir(),
           f"{ROOT} is not a checkout of the repository")
@@ -739,7 +970,7 @@ def main():
           f"byte-equal, {same_f}/{len(flat)} with the same bit_alloc", flush=True)
 
     # ---- phase 5: psy models 0, 2 and 3 at full width ---------------------------------
-    for psy, (warm, timed) in ((0, (2, 5)), (2, (2, 5)), (3, (1, 2))):
+    for psy, (warm, timed) in ((0, (2, 3)), (2, (2, 3)), (3, (1, 2))):
         penc = model.Mp2Encoder(cfg, psy_model=psy, dtype=torch.float32, device=dev,
                                 pack_on_device="frame")
         psy_stream, _, psy_l, psy_ms = run_main_path(penc, pcm[:warm + timed], warm, torch,
@@ -757,7 +988,8 @@ def main():
     from odr_audioenc_tpu_torch.dabplus import model as dmodel
     native.get_lib()       # raises if the native host packer does not build
     dcfg = dmodel.DabPlusConfig(48000, 12, 2)
-    d_warm, d_timed = 2, 5
+    # 2 + 3 superframes (2 + 5 until phases 9 and 10 joined the run)
+    d_warm, d_timed = 2, 3
     n_sf = d_warm + d_timed
     dpcm = superframe_pcm(S_FULL, n_sf, seed=13)                # [n_sf, S, 2, 5760]
     denc = dmodel.DabPlusEncoder(dcfg, S_FULL, dtype=torch.float32, device=dev)
@@ -916,6 +1148,10 @@ def main():
     print(f"phase 8d: X-PAD (pad_len=16, {n_pad} random pad bytes), DAB+ LC 96k, S={s64}, 3 "
           f"superframes: device pack == native host pack on {p_same}/{3 * s64}", flush=True)
 
+    # ---- phase 9: fleet_64 through the CLI's --streams; phase 10: the single-stream CLIs ----
+    fleet_l = phase_fleet(card, psycho1_kernels, torch, dev)
+    cli_l = phase_cli(card, psycho1_kernels, torch)
+
     left = live_children()
     check(not left, f"child processes still running: {left}")
     print(f"child processes left running: {len(left)}", flush=True)
@@ -926,13 +1162,17 @@ def main():
          "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:140",
          "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
          "bound_ms": kb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": kd_ms,
-         "share": kb_ms / kd_ms},
+         "share": kb_ms / kd_ms,
+         "launches_by_path": {"mp2_128 (phase 4)": launches, "fused-noise (phase 4b)": w_l,
+                              "fleet_64 (phase 9)": fleet_l[0], "cli (phase 10)": cli_l[0]}},
         {"name": "tonal_noise", "route": "cuda",
          "source": "odr_audioenc_tpu_torch/csrc/tonal_noise.cu",
          "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:151",
          "launches": noise_launches, "max_abs_err": err_n, "ms": kn_ms, "plain_ms": pn_ms,
          "bound_ms": knb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": knd_ms,
-         "share": knb_ms / knd_ms}]}))
+         "share": knb_ms / knd_ms,
+         "launches_by_path": {"mp2_128 (phase 4)": n_l, "fused-noise (phase 4b)": noise_launches,
+                              "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1]}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

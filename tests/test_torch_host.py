@@ -3,6 +3,8 @@ originals: every public table of `tables.py` and `dabplus/tables.py`, the
 MP2 packer (native and Python paths, from a golden's steps), the DAB+
 superframe packer (native and Python), the RS code and the validators, and
 the native build, which raises when it fails."""
+import ctypes
+import subprocess
 import types
 
 import numpy as np
@@ -96,6 +98,29 @@ def test_copied_table_equals_original(mods, name):
         _assert_same(orig, copy, name)
 
 
+@pytest.fixture(scope="module")
+def jax_native_lib(tmp_path_factory):
+    """The JAX package's native library as the oracle, built privately: its
+    own `get_lib()` rebuilds `native/libodrhost.so` in place whenever the
+    file is missing or older than its sources, and parallel test workers
+    that do so at once can load a half-written file and get None.  This
+    compiles the same sources with the flags of its `native/build.sh` into
+    a directory of this module's own, loads it as `get_lib()` does, and
+    hands it to `jnative` for the module's tests."""
+    src = jnative._DIR
+    so = tmp_path_factory.mktemp("jax_native") / "libodrhost.so"
+    res = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-fopenmp", "-o", str(so),
+                          "mp2pack.cpp", "dabpack.cpp"], cwd=src, capture_output=True,
+                         text=True)
+    assert res.returncode == 0, res.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    lib.mp2_pack_batch.restype = ctypes.c_int
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(jnative, "_LIB", lib)
+        m.setattr(jnative, "_TRIED", True)
+        yield lib
+
+
 # ---- MP2: the packers from a golden's steps ------------------------------------
 
 # two 48 kHz goldens of 30 frames in one batch: X-PAD 16 joint stereo, and 192k stereo
@@ -145,10 +170,11 @@ def _pack_mp2(packer_cls, cfg, steps, use_native):
 
 @pytest.mark.parametrize("pack_on_device,use_native", [(False, True), (False, False),
                                                        ("frame", True)])
-def test_mp2_packer_equals_jax_and_golden(pack_on_device, use_native):
+def test_mp2_packer_equals_jax_and_golden(pack_on_device, use_native, jax_native_lib):
     """The port's Mp2Packer gives the JAX package's bytes, which are the
     goldens' bytes, on the native path, on the Python path, and from the
     device-packed frames ("wire")."""
+    assert jnative.get_lib() is jax_native_lib
     cfg, steps = _mp2_steps(pack_on_device)
     got = _pack_mp2(TMp2Packer, cfg, steps, use_native)
     ref = _pack_mp2(JMp2Packer, cfg, steps, use_native)
@@ -225,16 +251,20 @@ def _jax_python_pack(enc, out, pads, add_rs, monkeypatch):
 @pytest.mark.parametrize("use_native,add_rs,with_pads", [(True, True, True), (True, False, False),
                                                          (False, True, True),
                                                          (False, False, False)])
-def test_superframe_packer_equals_jax(use_native, add_rs, with_pads, monkeypatch):
+def test_superframe_packer_equals_jax(use_native, add_rs, with_pads, monkeypatch,
+                                      jax_native_lib):
     """The port's dabplus_pack_batch (native) and its SuperframePacker with
     the Python AU writer give the JAX package's superframes; with RS every
-    one validates."""
+    one validates.  The native oracle is the module's private build of the
+    JAX package's library, and it must be there: None fails, loudly."""
+    assert jnative.get_lib() is jax_native_lib
     enc, outs = _dab_outputs()
     for out, pads in outs:
         pads = pads if with_pads else None
         got = enc.pack_superframes(out, add_rs=add_rs, pads=pads, use_native=use_native)
         if use_native:
             ref = jnative.dabplus_pack_batch(enc, convert.to_numpy(out), pads, add_rs)
+            assert ref is not None, "the JAX native oracle is unavailable"
         else:
             ref = _jax_python_pack(enc, out, pads, add_rs, monkeypatch)
         assert got == ref

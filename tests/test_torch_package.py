@@ -308,29 +308,61 @@ def test_mp2_port_runs_without_jax():
     assert loaded == []
 
 
-@pytest.mark.parametrize("make", ["Mp2Encoder", "DabPlusEncoder", "entry"])
-def test_entry_points_default_to_the_card(make):
+@pytest.mark.parametrize("make", ["Mp2Encoder", "DabPlusEncoder", "entry", "run_fleet",
+                                  "cli.main", "aacenc_cli.main"])
+def test_entry_points_default_to_the_card(make, tmp_path):
     """With no device, the entry points run on the card, and raise where
-    there is none (naming device="cpu"); device="cpu" runs on the CPU."""
+    there is none (naming device="cpu", or for the CLIs --compute-device
+    cpu) before they read or write anything; device="cpu" (the CLIs:
+    --compute-device cpu) runs on the CPU."""
+    from odr_audioenc_tpu_torch import aacenc_cli, cli, fleet
     from odr_audioenc_tpu_torch.dabplus import model as dmodel
     from odr_audioenc_tpu_torch.entry import entry
+    from odr_audioenc_tpu_torch.io.wav import WavWriter
     from odr_audioenc_tpu_torch.mp2 import model
 
+    wav = str(tmp_path / "in.wav")
+    w = WavWriter(wav, 48000, 2)
+    w.write(np.zeros((5760, 2), "<i2").tobytes())   # one MP2 frame, one DAB+ superframe
+    w.close()
+    out = tmp_path / "out.bin"
+
     def build(**kw):
+        """The device the entry point ran on."""
         if make == "Mp2Encoder":
             return model.Mp2Encoder(model.make_config([{"rate": 48000, "bitrate": 128,
                                                         "mode": "j"}]), **kw).device
         if make == "DabPlusEncoder":
             enc = dmodel.DabPlusEncoder(dmodel.DabPlusConfig(48000, 8, 1), 1, **kw)
             return enc.init_state()["prev"].device
-        return entry(n_streams=1, **kw)[1][1].device
+        if make == "entry":
+            return entry(n_streams=1, **kw)[1][1].device
+        if make == "run_fleet":
+            fleet.run_fleet({"streams": [{"codec": "mp2", "input": wav, "output": str(out)}],
+                             "chunk_seconds": 0}, **kw)
+            return torch.device(fleet.last_run["device"])
+        dev = ["--compute-device", kw["device"]] if kw else []
+        if make == "cli.main":
+            assert cli.main(["-a", "-i", wav, "-b", "128", "-o", str(out)] + dev) == 0
+        else:
+            assert aacenc_cli.main(["-r", "64000"] + dev + [wav, str(out)]) == 0
+        return cli.compute_device(kw.get("device"))
 
-    if torch.cuda.is_available():
-        assert build().type == "cuda"
-    else:
-        with pytest.raises(RuntimeError, match='device="cpu"'):
-            build()
-    assert build(device="cpu").type == "cpu"
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)            # the suite's other workers share the cores
+    try:
+        if torch.cuda.is_available():
+            assert build().type == "cuda"
+        else:
+            cpu = "--compute-device cpu" if "cli" in make else 'device="cpu"'
+            with pytest.raises(RuntimeError, match=cpu):
+                build()
+            assert not out.exists()
+        assert build(device="cpu").type == "cpu"
+    finally:
+        torch.set_num_threads(threads)
+    if make in ("run_fleet", "cli.main", "aacenc_cli.main"):
+        assert out.stat().st_size > 0
 
 
 @pytest.mark.parametrize("kwargs,what", [({"pack_on_device": True}, "item 11")])
