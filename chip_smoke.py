@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's MP2 and DAB+ (AAC-LC, HE-AAC, HE-AAC v2) main
-paths, its fleet runtime and its CLIs on one CUDA card and check them.
+paths, its fleet runtime, its CLIs and its bench on one CUDA card and check
+them.
 
 Usage (from the root of a checkout, on a machine with one NVIDIA card):
 
@@ -108,9 +109,11 @@ Phases (any failure exits non-zero and prints no result):
      joint stereo and stereo alternating; psy 1 f32, frame pack, the
      tonal-walk kernel), 16 DAB+ LC 96k stereo, 8 HE-AAC 48k mono, 8 HE-AAC
      v2 32k stereo (f32, device pack), 48 kHz, file sinks and stats sockets,
-     3.84 s of music per station (cut from the bench's 30 s: 4 chunks of
+     1.92 s of music per station (cut from the bench's 30 s: 2 chunks of
      0.96 s, k = 40 MP2 frames or 8 superframes, and the pass that meets
-     EOF, a chunk of silence; 2 warm-up passes and 3 timed).  Every MP2 frame parses with a valid
+     EOF, a chunk of silence; 2 warm-up passes and 1 timed; 3.84 s until
+     phase 11, which times fleet_64 over 2 passes, joined the run).  Every
+     MP2 frame parses with a valid
      CRC and every superframe passes RS, the firecode and
      validate_superframe; tonal_walk launched once per MP2 step and
      tonal_noise never; the first chunk of every station is byte-equal to
@@ -121,12 +124,25 @@ Phases (any failure exits non-zero and prints no result):
      overlap; DAB+ LC 96k, --sbr 48k mono and --ps 32k over 3 superframes
      are valid; aacenc_cli writes 18 LOAS frames with valid syncwords and
      lengths.  Neither psy-1 kernel launches (the exact path has no kernel).
+  11. the port's full-path bench (odr_audioenc_tpu_torch/bench.py, the
+     counterpart of the root bench.py) through bench.run_cells, as its main()
+     runs it: mp2_128, lc_96, sbr_48 and ps_32 at S=2048 with 3 timed steps
+     (the bench's default: 10) after its warm step, one step deep through
+     fleet._Transfers; fleet_64 on 2.88 s of audio per station (the bench's
+     default: 30 s; 3 chunks of 0.96 s and the pass that meets EOF, 2 of them
+     warm).  Every cell's last drain is valid (MP2 frames of the right count
+     and size with valid CRCs; superframes that pass RS, the firecode and
+     every AU CRC; fleet_64's last chunk of every station), the DAB+ steps
+     download the one wire leaf, tonal_walk launched iters + 2 times in the
+     mp2_128 cell, once per MP2 step in fleet_64 and never in the DAB+
+     cells, tonal_noise never, every rate finite and above 0.  Prints each
+     cell's line and the bench's own JSON line (the harmonic mean).
 
 The f32 phases 6-7c report how many of the AUs that decide differently on the
 card than on the CPU differ in the core's decisions only, in the SBR/PS side
 data only, and in both.
 
-Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b, 9, 10) sets the launch
+Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b, 9, 10, 11) sets the launch
 counts to 0 just before it and reads them just after; the DAB+ runs must
 launch neither psy-1 kernel.  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
@@ -530,29 +546,15 @@ def write_wav(path, sig):
     return str(path)
 
 
-FLEET_S = 3.84      # seconds of audio per fleet_64 station: 4 chunks of 0.96 s
+FLEET_S = 1.92      # seconds of audio per fleet_64 station: 2 chunks of 0.96 s
 
 
 def fleet64_streams(tmp, sig):
-    """BASELINE config 5 (the JAX bench's fleet_64, bench.py:161-199): 32
-    MP2 stations at 128/192/96/160k, joint stereo and stereo alternating; 16
-    DAB+ LC 96k stereo; 8 HE-AAC 48k mono; 8 HE-AAC v2 32k stereo; all 48 kHz,
-    each with a file sink and a stats socket."""
+    """BASELINE config 5 (the bench's fleet_64, bench.fleet64_streams) on
+    sig [2, n], written as a stereo and a mono 48 kHz WAV in `tmp`."""
+    from odr_audioenc_tpu_torch import bench
     wav, wav1 = write_wav(tmp / "in.wav", sig), write_wav(tmp / "in_mono.wav", sig[:1])
-    streams = []
-    for i in range(64):
-        if i < 32:
-            spec = {"codec": "mp2", "bitrate": [128, 192, 96, 160][i % 4], "mode": "js"[i % 2]}
-        elif i < 48:
-            spec = {"codec": "dabplus", "bitrate": 96, "channels": 2}
-        elif i < 56:
-            spec = {"codec": "dabplus", "bitrate": 48, "channels": 1}
-        else:
-            spec = {"codec": "dabplus", "bitrate": 32, "channels": 2}
-        spec.update(rate=48000, input=wav1 if spec.get("channels") == 1 else wav,
-                    output=str(tmp / f"out{i}.bin"), stats=str(tmp / f"stats{i}.sock"))
-        streams.append(spec)
-    return streams
+    return bench.fleet64_streams(str(tmp), wav, wav1)
 
 
 def first_chunk_direct(streams, sig, k_of, torch, dev):
@@ -727,6 +729,79 @@ def phase_cli(card, kernels, torch):
     check(k_l == (0, 0), f"phase 10: the CLI launched the psy-1 kernels {k_l}")
     print(f"phase 10: the CLIs on the card: {'; '.join(lines)}; psy-1 kernel launches {k_l} "
           f"[{card}]", flush=True)
+    return k_l
+
+
+BENCH_ITERS = 3         # timed steps of the bench's device cells (its default: 10)
+BENCH_FLEET_S = 2.88    # seconds of audio per fleet_64 station (its default: 30)
+
+
+def phase_bench(card, kernels, torch, dev):
+    """Phase 11: the port's full-path bench (odr_audioenc_tpu_torch.bench)
+    on the card.  Returns (tonal_walk launches, tonal_noise launches) of the
+    run."""
+    import math
+    from odr_audioenc_tpu_torch import bench
+    from odr_audioenc_tpu_torch.host import mp2parse
+    kernels.launches = kernels.noise_launches = 0
+    t0 = time.perf_counter()
+    rates = bench.run_cells(S_FULL, BENCH_ITERS, dev, card, fleet_seconds=BENCH_FLEET_S)
+    wall = time.perf_counter() - t0
+    k_l = (kernels.launches, kernels.noise_launches)
+    cells = bench.last_cells
+    check(list(rates) == list(bench.CELLS), f"phase 11: cells {list(rates)}")
+    check(all(math.isfinite(r) and r > 0 for r in rates.values()), f"phase 11: rates {rates}")
+    check(tuple(map(sum, zip(*(cells[c]["launches"] for c in bench.CELLS)))) == k_l,
+          f"phase 11: the cells' launches do not add up to the run's {k_l}")
+    mp2 = cells["mp2_128"]
+    check(mp2["steps"] == BENCH_ITERS + 2 and mp2["launches"] == (BENCH_ITERS + 2, 0),
+          f"phase 11: mp2_128 launched {mp2['launches']} (tonal_walk, tonal_noise) in "
+          f"{mp2['steps']} steps")
+    check(len(mp2["last"]) == S_FULL and all(len(f) == 384 for f in mp2["last"]),
+          "phase 11: wrong frame count or size in mp2_128's last drain")
+    sfs = []            # every superframe drained last, checked below in one go
+    for name, (subch, _, _) in bench.DABPLUS_CELLS.items():
+        c = cells[name]
+        check(c["launches"] == (0, 0), f"phase 11: {name} launched the psy-1 kernels "
+              f"{c['launches']}")
+        check(c["leaves"] == ["wire"], f"phase 11: {name}'s step downloads {c['leaves']}")
+        check(len(c["last"]) == S_FULL and all(len(f) == 120 * subch for f in c["last"]),
+              f"phase 11: wrong superframe count or size in {name}'s last drain")
+        sfs += c["last"]
+    n_sf = len(sfs)
+    fl = cells["fleet_64"]
+    groups = {g["key"][0] if g["key"][0] == "mp2" else g["key"][-1]: g for g in fl["groups"]}
+    mp2_steps = groups["mp2"]["chunks"] * groups["mp2"]["k"]
+    check(fl["launches"] == (mp2_steps, 0), f"phase 11: fleet_64 launched {fl['launches']} "
+          f"(tonal_walk, tonal_noise) in {mp2_steps} MP2 steps")
+    chunk = 40 * 1152                 # 0.96 s: 40 MP2 frames, 8 superframes
+    check(fl["steps"] == -(-round(48000 * BENCH_FLEET_S) // chunk) + 1,
+          f"phase 11: fleet_64 ran {fl['steps']} passes")
+    specs = bench.fleet64_streams("", "", "")
+    aot_of = ["mp2"] * 32 + ["lc"] * 16 + ["sbr"] * 8 + ["ps"] * 8
+    fb = [3 * s["bitrate"] if s["codec"] == "mp2" else 15 * s["bitrate"] for s in specs]
+    check(all(len(fl["last"][i]) == groups[aot_of[i]]["k"] * fb[i] for i in range(64)),
+          "phase 11: fleet_64's last drain has the wrong size")
+    check(all(fl["sizes"][i] == (mp2_steps - 1) * fb[i] for i in range(32)),
+          "phase 11: wrong MP2 byte count in fleet_64")
+    fl_frames = [f for i in range(32) for f in mp2parse.split_frames(fl["last"][i])]
+    fl_sfs = [fl["last"][i][j:j + fb[i]] for i in range(32, 64)
+              for j in range(0, len(fl["last"][i]), fb[i])]
+    # one pass of CRC workers per checker (each worker's start imports torch)
+    check(all_crc_ok(mp2["last"] + fl_frames),
+          "phase 11: an MP2 frame of mp2_128's or fleet_64's last drain fails its CRC")
+    check(all_crc_ok(sfs + fl_sfs, "_superframe_ok"), "phase 11: a superframe of the DAB+ "
+          "cells' or fleet_64's last drain fails RS, its firecode or an AU CRC")
+    line = bench.headline(rates, S_FULL, dev, card)
+    print(f"phase 11: the port's bench (odr_audioenc_tpu_torch.bench.run_cells) on the card, "
+          f"S={S_FULL}, {BENCH_ITERS} timed steps, fleet_64 on {BENCH_FLEET_S} s of audio "
+          f"({fl['steps']} passes, 2 warm): last drains valid ({len(mp2['last'])} MP2 frames, "
+          f"{n_sf} superframes; fleet_64 {len(fl_frames)} MP2 frames and {len(fl_sfs)} "
+          f"superframes); tonal_walk {mp2['launches'][0]} launches in the mp2_128 cell, "
+          f"{fl['launches'][0]} in fleet_64's {mp2_steps} MP2 steps, 0 in the DAB+ cells; "
+          f"tonal_noise {k_l[1]}; headline {line['value']} streams x realtime; {wall:.1f} s "
+          f"[{card}]", flush=True)
+    print(json.dumps(line), flush=True)
     return k_l
 
 
@@ -1152,6 +1227,9 @@ def main():
     fleet_l = phase_fleet(card, psycho1_kernels, torch, dev)
     cli_l = phase_cli(card, psycho1_kernels, torch)
 
+    # ---- phase 11: the port's full-path bench --------------------------------------------
+    bench_l = phase_bench(card, psycho1_kernels, torch, dev)
+
     left = live_children()
     check(not left, f"child processes still running: {left}")
     print(f"child processes left running: {len(left)}", flush=True)
@@ -1164,7 +1242,8 @@ def main():
          "bound_ms": kb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": kd_ms,
          "share": kb_ms / kd_ms,
          "launches_by_path": {"mp2_128 (phase 4)": launches, "fused-noise (phase 4b)": w_l,
-                              "fleet_64 (phase 9)": fleet_l[0], "cli (phase 10)": cli_l[0]}},
+                              "fleet_64 (phase 9)": fleet_l[0], "cli (phase 10)": cli_l[0],
+                              "bench (phase 11)": bench_l[0]}},
         {"name": "tonal_noise", "route": "cuda",
          "source": "odr_audioenc_tpu_torch/csrc/tonal_noise.cu",
          "replaces": "odr_audioenc_tpu/mp2/psycho1_pallas.py:151",
@@ -1172,7 +1251,8 @@ def main():
          "bound_ms": knb_ms, "bound_by": "bytes", "library_ms": None, "device_ms": knd_ms,
          "share": knb_ms / knd_ms,
          "launches_by_path": {"mp2_128 (phase 4)": n_l, "fused-noise (phase 4b)": noise_launches,
-                              "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1]}}]}))
+                              "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1],
+                              "bench (phase 11)": bench_l[1]}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -309,13 +309,15 @@ def test_mp2_port_runs_without_jax():
 
 
 @pytest.mark.parametrize("make", ["Mp2Encoder", "DabPlusEncoder", "entry", "run_fleet",
-                                  "cli.main", "aacenc_cli.main"])
-def test_entry_points_default_to_the_card(make, tmp_path):
+                                  "cli.main", "aacenc_cli.main", "bench.main"])
+def test_entry_points_default_to_the_card(make, tmp_path, monkeypatch):
     """With no device, the entry points run on the card, and raise where
     there is none (naming device="cpu", or for the CLIs --compute-device
     cpu) before they read or write anything; device="cpu" (the CLIs:
-    --compute-device cpu) runs on the CPU."""
-    from odr_audioenc_tpu_torch import aacenc_cli, cli, fleet
+    --compute-device cpu) runs on the CPU.  The bench runs its device cells
+    there at S=1 and one timed step, and hands the device to fleet_64 (a
+    stand-in here: 64 stations take minutes on the CPU)."""
+    from odr_audioenc_tpu_torch import aacenc_cli, bench, cli, fleet
     from odr_audioenc_tpu_torch.dabplus import model as dmodel
     from odr_audioenc_tpu_torch.entry import entry
     from odr_audioenc_tpu_torch.io.wav import WavWriter
@@ -337,6 +339,20 @@ def test_entry_points_default_to_the_card(make, tmp_path):
             return enc.init_state()["prev"].device
         if make == "entry":
             return entry(n_streams=1, **kw)[1][1].device
+        if make == "bench.main":
+            fleet_device = []
+
+            def fleet64(seconds=30.0, device=None):
+                fleet_device.append(device)
+                bench.last_cells["fleet_64"] = {"rate": 1.0, "ms": 1.0, "steps": 1, "S": 64}
+                return 1.0
+
+            monkeypatch.setenv("BENCH_STREAMS", "1")
+            monkeypatch.setenv("BENCH_ITERS", "1")
+            monkeypatch.setattr(bench, "fleet64_rate", fleet64)
+            line = bench.main(**kw)
+            assert line["value"] > 0 and fleet_device == [torch.device("cpu")]
+            return torch.device(bench.last_cells["lc_96"]["device"])
         if make == "run_fleet":
             fleet.run_fleet({"streams": [{"codec": "mp2", "input": wav, "output": str(out)}],
                              "chunk_seconds": 0}, **kw)
