@@ -1,0 +1,12 @@
+"""The benchmark's CPU tests: `python3 -m pytest benchmark/tests -q` from the
+root of a checkout (the tests marked `cuda` run on a card only)."""
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+torch.set_num_threads(1)
