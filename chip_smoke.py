@@ -352,14 +352,29 @@ def run_dabplus(enc, pcm, torch, first8=8, count_key=None, pack_check=False):
         info["d2h_bytes"] = sum(v.numel() * v.element_size() for v in out.values())
         if pack_check and t == pcm.shape[0] - 1:
             from odr_audioenc_tpu_torch.dabplus import aupack
-            from odr_audioenc_tpu_torch.profile_dabplus import device_profile
             ctx = aupack.AuPackCtx(enc)
             dev_sf = aupack.pack_from_outputs(enc, out, ctx=ctx)
             info["pack_equal"] = sum(dev_sf[i].tobytes() == f for i, f in enumerate(packed))
             info["pack_profile"] = device_profile(
-                lambda: aupack.pack_from_outputs(enc, out, ctx=ctx))
+                lambda: aupack.pack_from_outputs(enc, out, ctx=ctx), torch)
             info["maxcb"] = ctx.maxcb
     return frames, step_s, pack_s, outs, counted, info
+
+
+def device_profile(fn, torch):
+    """fn() once under torch.profiler: its device events (kernels, memcpys,
+    memsets), their summed time and the host wall time of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return {"device_events": len(dev), "profiled_wall_ms": 1000.0 * wall,
+            "device_busy_ms": sum(e.time_range.end - e.time_range.start for e in dev) / 1000.0}
 
 
 def report_pack_check(label, cfg, info, S, card):

@@ -28,6 +28,8 @@ import time
 import numpy as np
 import torch
 
+from . import obs
+
 # reference: "Due to memory leaks in the VLC input, we don't want to
 # restart it endlessly." (odr-audioenc.cpp:94-96)
 MAX_FAULTS_ALLOWED = 5
@@ -92,7 +94,9 @@ def make_argparser():
     p.add_argument("--logfile", default=None,
                    help="append log lines to a file (LogToFile backend)")
     p.add_argument("--tracefile", default=None,
-                   help="microsecond event trace output (LogTracer backend)")
+                   help="microsecond event trace output (LogTracer backend): records "
+                        "the encoder's spans and writes each at exit as "
+                        "<us>,<start us>,<name>,<duration us>,<parent>[,<count>=<n>]")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the encode loop "
                         "into DIR/trace.json (Chrome trace format)")
@@ -496,14 +500,34 @@ def run_streams(args, device):
 
 
 def _setup_logging(args):
+    """Registers the log backends the options ask for; returns the tracer
+    (None without --tracefile)."""
     from .host.log import eti_log, LogToSyslog, LogToFile, LogTracer
     if args.syslog:
         eti_log.register_backend(LogToSyslog())
     if args.logfile:
         eti_log.register_backend(LogToFile(args.logfile))
+    tracer = None
     if args.tracefile:
-        eti_log.register_backend(LogTracer(args.tracefile))
-    return eti_log
+        tracer = LogTracer(args.tracefile)
+        eti_log.register_backend(tracer)
+    return tracer
+
+
+def _write_spans(tracer, t0):
+    """Every span recorded since t0 (perf_counter ns) through the tracer,
+    in the order they closed: start and duration in us, name, parent and
+    counts."""
+    from .host.log import TRACE
+    for sp in obs.spans():
+        if sp.start_ns < t0:
+            continue
+        parent = sp.parent.name if sp.parent is not None else ""
+        counts = "".join(f",{k}={v}" for k, v in sp.counts.items())
+        tracer.log(TRACE, f"{(sp.start_ns - t0) // 1000},{sp.name},"
+                          f"{(sp.end_ns - sp.start_ns) // 1000},{parent}{counts}")
+    if obs.dropped():
+        tracer.log(TRACE, f"dropped,{obs.dropped()}")
 
 
 def _profiler(args, device):
@@ -523,17 +547,23 @@ def _profiler(args, device):
 def main(argv=None):
     args = make_argparser().parse_args(argv)
     device = compute_device(args.compute_device)
-    _setup_logging(args)
-    with _profiler(args, device):
-        if args.startup_check:
-            r = subprocess.run(args.startup_check, shell=True)
-            if r.returncode != 0:
-                print(f"Startup check failed, returned {r.returncode}", file=sys.stderr)
-                return 1
-            print("Startup check ok", file=sys.stderr)
-        if args.streams:
-            return run_streams(args, device)
-        return run_single(args, device)
+    tracer = _setup_logging(args)
+    tracing = obs.enabled() if tracer is not None else contextlib.nullcontext()
+    t0 = time.perf_counter_ns()
+    try:
+        with tracing, _profiler(args, device):
+            if args.startup_check:
+                r = subprocess.run(args.startup_check, shell=True)
+                if r.returncode != 0:
+                    print(f"Startup check failed, returned {r.returncode}", file=sys.stderr)
+                    return 1
+                print("Startup check ok", file=sys.stderr)
+            if args.streams:
+                return run_streams(args, device)
+            return run_single(args, device)
+    finally:
+        if tracer is not None:
+            _write_spans(tracer, t0)
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .. import convert
+from .. import convert, obs
 from ..device import default_device, default_dtype
 from ..host import native
 from ..host.aacpack import SuperframePacker, write_au, write_dse
@@ -370,6 +370,7 @@ class DabPlusEncoder(nn.Module):
     def forward(self, state, pcm, pad_buf=None, pad_len=None):
         return self._superframe_step(state, pcm, pad_buf, pad_len)
 
+    @obs.spanned("dabplus.step")
     def _superframe_step(self, state, pcm, pad_buf=None, pad_len=None):
         """pcm: [S, ch, num_aus*au_samples] int16 -> (state', outputs
         [S, nau, ...]).  One AU of delay (state["pend"]) gives block
@@ -382,14 +383,17 @@ class DabPlusEncoder(nn.Module):
         S = pcm.shape[0]
         nau, N = cfg.num_aus, AT.N
         x_new = pcm.to(dt)
-        wseq, state = BS.block_switch(x_new, state, cfg.au_samples // 8)   # [nau, S]
+        with obs.span("dabplus.blockswitch"):
+            wseq, state = BS.block_switch(x_new, state, cfg.au_samples // 8)   # [nau, S]
         x = torch.cat([state["pend"], x_new[..., :-cfg.au_samples]], -1)
         state = dict(state, pend=x_new[..., -cfg.au_samples:])
         sbr_out, total = {}, nau * self.budget_au
         if self.is_ps:
-            x, state, sbr_out = self._ps_analysis(x, state)
+            with obs.span("dabplus.ps"):
+                x, state, sbr_out = self._ps_analysis(x, state)
         if self.is_sbr:
-            x, state, side, sbr_bits = self._sbr_analysis(x, state, sbr_out)
+            with obs.span("dabplus.sbr"):
+                x, state, side, sbr_bits = self._sbr_analysis(x, state, sbr_out)
             sbr_out.update(side, sbr_bits=sbr_bits)
             total = total - sbr_bits.sum(1)          # the core's share of the superframe
         ch = x.shape[1]
@@ -417,58 +421,67 @@ class DabPlusEncoder(nn.Module):
         thr_nm1, pre_flag, wgt_last = state["thr_nm1"], state["pre_flag"], state["wgt_last"]
         outs = []
         for a in range(nau):
-            prev, cur, seq = prevs[a], grans[a], wseq[a]
-            spec = E.mdct_frame_switched(prev, cur, self.cos_basis, self.wvecs,
-                                         self.short_basis, seq)
-            # reservoir spending: ordinary AUs may draw a quarter of the
-            # reservoir, high-contrast ones all of it, capped per AU
-            sub = torch.cat([prev, cur], -1).reshape(S, ch, 16, N // 8)
-            se = (sub * sub).sum(-1)
-            hard = (se.amax(-1) > 32.0 * (se.amin(-1) + 1.0)).any(-1)
-            allow = torch.where(hard, leftover, leftover // 4)
-            allow = allow.clamp(max=self.budget_au + self.bitres_max)
-            budget = budgets[a] + allow
-            o = E.encode_au(spec, pt, self.band_m, self.bol, max_sfb, budget, nch,
-                            tns_cfg=self.tns_cfg, short_ctx=short_ctx, is_short=seq == 2,
-                            refine_rounds=E.REFINE_ROUNDS if cfg.afterburner else 0,
-                            modify_minsnr=self.modify_minsnr,
-                            pre_state=(thr_nm1, pre_flag), seq=seq, weight_state=wgt_last)
-            self.recover_checks += 1
-            self.recoveries += o["recovered"]
-            leftover = ((budget - o["bits"]).clamp(min=0) + (leftover - allow)).to(torch.int32)
-            thr_nm1, pre_flag, wgt_last = o["thr_nm1"], o["pre_flag"], o["last_patch"]
-            if ctx is not None:
-                # pack the whole AU on the device: the loop keeps only the
-                # content bytes, the bit count and the CRC reduction
-                fr = {k: o[k] for k in aupack.CORE_KEYS if k != "wseq"}
-                fr["wseq"] = seq
-                groups = aupack.au_content_groups(
-                    ctx, fr, a == nau - 1,
-                    pad_buf=pad_buf[:, a] if pad_buf is not None else None,
-                    pad_len=pad_len[:, a] if pad_len is not None else None,
-                    sbr_group=(sbr_w[:, a], sbr_v[:, a], 4) if sbr_w is not None else None)
-                aubuf, abits, c1 = aupack.pack_au_content(ctx, groups)
-                outs.append({"aubuf": aubuf.to(torch.uint8), "au_bits": abits, "crc_part": c1})
-                continue
-            # narrow dtypes for the device-to-host copy; the packer widens
-            outs.append({"q": o["q"].to(torch.int16), "gains": o["gains"].to(torch.int16),
-                         "books": o["books"].to(torch.uint8), "bits": o["bits"].to(torch.int32),
-                         "ms_used": o["ms_used"], "tns_en": o["tns_en"],
-                         "tns_order": o["tns_order"].to(torch.int8),
-                         "tns_idx": o["tns_idx"].to(torch.int8), "tns_en_lo": o["tns_en_lo"],
-                         "tns_order_lo": o["tns_order_lo"].to(torch.int8),
-                         "tns_idx_lo": o["tns_idx_lo"].to(torch.int8),
-                         "tns_len": o["tns_len"].to(torch.int8), "wseq": seq.to(torch.int8)})
+            with obs.span("dabplus.au") as au:
+                au.add("a", a)
+                prev, cur, seq = prevs[a], grans[a], wseq[a]
+                with obs.span("dabplus.mdct"):
+                    spec = E.mdct_frame_switched(prev, cur, self.cos_basis, self.wvecs,
+                                                 self.short_basis, seq)
+                # reservoir spending: ordinary AUs may draw a quarter of the
+                # reservoir, high-contrast ones all of it, capped per AU
+                sub = torch.cat([prev, cur], -1).reshape(S, ch, 16, N // 8)
+                se = (sub * sub).sum(-1)
+                hard = (se.amax(-1) > 32.0 * (se.amin(-1) + 1.0)).any(-1)
+                allow = torch.where(hard, leftover, leftover // 4)
+                allow = allow.clamp(max=self.budget_au + self.bitres_max)
+                budget = budgets[a] + allow
+                o = E.encode_au(spec, pt, self.band_m, self.bol, max_sfb, budget, nch,
+                                tns_cfg=self.tns_cfg, short_ctx=short_ctx, is_short=seq == 2,
+                                refine_rounds=E.REFINE_ROUNDS if cfg.afterburner else 0,
+                                modify_minsnr=self.modify_minsnr,
+                                pre_state=(thr_nm1, pre_flag), seq=seq, weight_state=wgt_last)
+                self.recover_checks += 1
+                self.recoveries += o["recovered"]
+                leftover = ((budget - o["bits"]).clamp(min=0)
+                            + (leftover - allow)).to(torch.int32)
+                thr_nm1, pre_flag, wgt_last = o["thr_nm1"], o["pre_flag"], o["last_patch"]
+                if ctx is not None:
+                    # pack the whole AU on the device: the loop keeps only the
+                    # content bytes, the bit count and the CRC reduction
+                    with obs.span("dabplus.aupack"):
+                        fr = {k: o[k] for k in aupack.CORE_KEYS if k != "wseq"}
+                        fr["wseq"] = seq
+                        groups = aupack.au_content_groups(
+                            ctx, fr, a == nau - 1,
+                            pad_buf=pad_buf[:, a] if pad_buf is not None else None,
+                            pad_len=pad_len[:, a] if pad_len is not None else None,
+                            sbr_group=(sbr_w[:, a], sbr_v[:, a], 4) if sbr_w is not None
+                            else None)
+                        aubuf, abits, c1 = aupack.pack_au_content(ctx, groups)
+                        outs.append({"aubuf": aubuf.to(torch.uint8), "au_bits": abits,
+                                     "crc_part": c1})
+                    continue
+                # narrow dtypes for the device-to-host copy; the packer widens
+                outs.append({"q": o["q"].to(torch.int16), "gains": o["gains"].to(torch.int16),
+                             "books": o["books"].to(torch.uint8),
+                             "bits": o["bits"].to(torch.int32),
+                             "ms_used": o["ms_used"], "tns_en": o["tns_en"],
+                             "tns_order": o["tns_order"].to(torch.int8),
+                             "tns_idx": o["tns_idx"].to(torch.int8), "tns_en_lo": o["tns_en_lo"],
+                             "tns_order_lo": o["tns_order_lo"].to(torch.int8),
+                             "tns_idx_lo": o["tns_idx_lo"].to(torch.int8),
+                             "tns_len": o["tns_len"].to(torch.int8), "wseq": seq.to(torch.int8)})
         out = {k: torch.stack([o[k] for o in outs], 1) for k in outs[0]}   # [S, nau, ...]
         if ctx is not None:
-            sf, lens = aupack.assemble_superframes(ctx, out["aubuf"], out["au_bits"],
-                                                   out["crc_part"])
-            # one output leaf, one device-to-host copy: superframe bytes |
-            # au_len lo, hi | au_bits lo, hi, [S, 120*subch + 4*nau] uint8
-            ab = out["au_bits"]
-            tail = torch.cat([lens & 0xFF, (lens >> 8) & 0xFF, ab & 0xFF, (ab >> 8) & 0xFF],
-                             dim=1).to(torch.uint8)
-            out = {"wire": torch.cat([sf, tail], dim=1)}
+            with obs.span("dabplus.assemble"):
+                sf, lens = aupack.assemble_superframes(ctx, out["aubuf"], out["au_bits"],
+                                                       out["crc_part"])
+                # one output leaf, one device-to-host copy: superframe bytes |
+                # au_len lo, hi | au_bits lo, hi, [S, 120*subch + 4*nau] uint8
+                ab = out["au_bits"]
+                tail = torch.cat([lens & 0xFF, (lens >> 8) & 0xFF, ab & 0xFF, (ab >> 8) & 0xFF],
+                                 dim=1).to(torch.uint8)
+                out = {"wire": torch.cat([sf, tail], dim=1)}
         else:
             out.update(sbr_out)
         new_state = dict(state, prev=grans[-1], bitres=leftover.clamp(max=self.bitres_max),
@@ -507,6 +520,7 @@ class DabPlusEncoder(nn.Module):
             return state, out
         return state, self.pack_superframes(out, add_rs=add_rs, pads=pads)
 
+    @obs.spanned("dabplus.slice")
     def pack_superframes(self, out, add_rs=None, pads=None, use_native=True):
         """Host half of encode_superframes (AU syntax + superframe + RS)
         through the port's host packers: the native batch packer (built at

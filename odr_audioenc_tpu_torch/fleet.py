@@ -40,6 +40,7 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from . import obs
 from .device import default_device
 
 # figures of the last run_fleet call (read by chip_smoke.py and shown with
@@ -206,6 +207,7 @@ class _Transfers:
             buf = slot[name] = torch.empty(shape, dtype=dtype, pin_memory=True)
         return buf
 
+    @obs.spanned("io.upload")
     def upload(self, pcm):
         """pcm: numpy [k, S, ch, n] int16 -> the tensor on the device."""
         host = torch.from_numpy(pcm)
@@ -215,6 +217,7 @@ class _Transfers:
         buf.copy_(host)
         return buf.to(self.device, non_blocking=True)
 
+    @obs.spanned("io.download")
     def download(self, out):
         """Enqueue the copies of the step's outputs; returns the handle
         that `wait` takes, and flips the slot."""
@@ -230,6 +233,7 @@ class _Transfers:
         return host, event
 
     @staticmethod
+    @obs.spanned("io.wait")
     def wait(handle):
         """numpy copies of a download's outputs, once its copies are done
         (copies: the packers keep a frame past this drain, and the pinned

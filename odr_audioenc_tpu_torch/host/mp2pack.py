@@ -8,6 +8,7 @@ close_bit_stream_w).
 """
 import numpy as np
 
+from .. import obs
 from .. import tables as T
 from . import mp2crc
 from .bitwriter import BitWriter
@@ -249,6 +250,7 @@ class Mp2Packer:
         self._pf = (frames, scf_off, lg)
         return emitted
 
+    @obs.spanned("mp2.emit")
     def emit(self, out, xpads=None, use_native=True):
         """out: device outputs as numpy (dict of [S, ...] arrays).
         xpads: optional list of per-stream xpad byte buffers (length

@@ -8,6 +8,7 @@ replicates the C expression, so the f64 path is bit-exact.
 import numpy as np
 import torch
 
+from .. import obs
 from .. import tables as T
 from ..device import const
 
@@ -287,14 +288,16 @@ def a_bit_allocation(smr, scfsi, ft, sblimit, nch, jsbound, adb):
     # mirror joint ladders into channel 1
     ba0 = torch.stack([ba0[:, 0], torch.where(lt["is_js"], ba0[:, 0], ba0[:, 1])],
                       dim=1)
-    return _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound)
+    with obs.span("mp2.alloc.tail") as tail:
+        return _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound, tail)
 
 
-def _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound):
+def _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound, tail):
     """Faithful continuation of the C greedy from a mid-allocation state.
     One iteration per pick for every stream at once; the loop ends when no
     stream has an open slot (on CUDA the test is one host sync per
-    iteration)."""
+    iteration).  tail counts the loop's tests of `done` as `passes`: one
+    host sync each, one more than the iterations."""
     B = smr.shape[0]
     dev, dtype = smr.device, smr.dtype
     sb = _arange(SBLIMIT, smr)
@@ -328,7 +331,7 @@ def _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound):
         """rows [..., 16] at idx [...] (clipped to the row)."""
         return torch.gather(rows, -1, idx.clamp(0, 15)[..., None])[..., 0]
 
-    while not bool(done.all()):
+    while not _all_done(done, tail):
         # every open slot whose next rung no longer fits will freeze when
         # visited (the budget never grows), so freeze them all now without
         # changing the pick order of the rest
@@ -392,6 +395,13 @@ def _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound):
         spent = spent + torch.where(alloc, increment + scale + seli, 0)
         done = done | ~any_open
     return ba, ad - spent
+
+
+def _all_done(done, tail):
+    """done.all() read on the host: the tail's one sync per pass."""
+    tail.add("passes")
+    with obs.span("mp2.tail.sync"):
+        return bool(done.all())
 
 
 def quantize(sf_index, sb_sample, j_scale, j_sample, bit_alloc, ft,

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .. import convert
+from .. import convert, obs
 from .. import tables as T
 from ..device import default_device, default_dtype
 from . import (allocate, binpack, framepack, polyphase, psycho0, psycho1, psycho1_fast,
@@ -258,6 +258,7 @@ class Mp2Encoder(nn.Module):
     def forward(self, state, pcm, xpad_len, extra_slots=None, xpad_buf=None):
         return self._encode_step(state, pcm, xpad_len, extra_slots, xpad_buf)
 
+    @obs.spanned("mp2.step")
     def _encode_step(self, state, pcm, xpad_len, extra_slots=None, xpad_buf=None):
         """pcm: [S, 2, 1152] int16; xpad_len: [S]; extra_slots: [S] padding
         slots this frame (44.1k family; None = no padding); xpad_buf:
@@ -268,75 +269,80 @@ class Mp2Encoder(nn.Module):
         sblimit, nch, mode = self._col("sblimit"), self._col("nch"), self._col("mode")
         frame = pcm.to(dtype) / T.SCALE
 
-        sb_s, hist = polyphase.polyphase_frame(state["hist"], frame)
-        sb_sample = sb_s.reshape(S, 2, 3, 12, 32)
-        sbmask = torch.arange(32, device=frame.device)[None, :] < sblimit[:, None]
+        with obs.span("mp2.polyphase"):
+            sb_s, hist = polyphase.polyphase_frame(state["hist"], frame)
+            sb_sample = sb_s.reshape(S, 2, 3, 12, 32)
+            sbmask = torch.arange(32, device=frame.device)[None, :] < sblimit[:, None]
 
-        sf_index = allocate.scalefactor_calc(sb_sample)
-        sf_index = torch.where(sbmask[:, None, None, :], sf_index, 0)
-        scale_max = allocate.find_sf_max(sf_index, sblimit, dtype)
-        j_sample = allocate.combine_lr(sb_sample)               # [S,3,12,32]
-        j_scale = torch.where(sbmask[:, None, :], allocate.scalefactor_calc(j_sample), 0)
+            sf_index = allocate.scalefactor_calc(sb_sample)
+            sf_index = torch.where(sbmask[:, None, None, :], sf_index, 0)
+            scale_max = allocate.find_sf_max(sf_index, sblimit, dtype)
+            j_sample = allocate.combine_lr(sb_sample)               # [S,3,12,32]
+            j_scale = torch.where(sbmask[:, None, :], allocate.scalefactor_calc(j_sample), 0)
 
-        tabs = self.psy_tabs()
-        low2 = self._col("low_rate").repeat_interleave(2)
-        if self.psy_model in (1, 3):     # the 1024-sample FFT window of models 1 and 3
-            window = torch.cat([state["hist"][..., 288:], frame[..., :832]],
-                               dim=-1).reshape(S * 2, 1024)
         new_state = {"hist": hist}
-        if self.psy_model == 1:
-            if self.fast_psy:
-                smr = psycho1_fast.psycho_1_fast(window, scale_max.reshape(S * 2, 32), tabs,
-                                                 low2, use_kernel=self.psy_kernel)
+        with obs.span("mp2.psy"):
+            tabs = self.psy_tabs()
+            low2 = self._col("low_rate").repeat_interleave(2)
+            if self.psy_model in (1, 3):     # the 1024-sample FFT window of models 1 and 3
+                window = torch.cat([state["hist"][..., 288:], frame[..., :832]],
+                                   dim=-1).reshape(S * 2, 1024)
+            if self.psy_model == 1:
+                if self.fast_psy:
+                    smr = psycho1_fast.psycho_1_fast(window, scale_max.reshape(S * 2, 32), tabs,
+                                                     low2, use_kernel=self.psy_kernel)
+                else:
+                    smr = psycho1.psycho_1(window, scale_max.reshape(S * 2, 32), tabs, low2)
+                smr = smr.reshape(S, 2, 32)
+            elif self.psy_model == 0:
+                smr = psycho0.psycho_0(sf_index, tabs["ath_min"][:, None, :])
+            elif self.psy_model == -1:
+                smr = psycho_n1.psycho_n1(S, dtype, frame.device)
+            elif self.psy_model in (2, 4):
+                # model 4 shares model 2's runtime with its own tables; both
+                # window the raw, unscaled samples
+                raw = pcm.to(dtype).reshape(S * 2, 1152)
+                smr, new_state["psy2"] = psycho2.psycho_2(raw, state["psy2"], tabs)
+                smr = smr.reshape(S, 2, 32)
             else:
-                smr = psycho1.psycho_1(window, scale_max.reshape(S * 2, 32), tabs, low2)
-            smr = smr.reshape(S, 2, 32)
-        elif self.psy_model == 0:
-            smr = psycho0.psycho_0(sf_index, tabs["ath_min"][:, None, :])
-        elif self.psy_model == -1:
-            smr = psycho_n1.psycho_n1(S, dtype, frame.device)
-        elif self.psy_model in (2, 4):
-            # model 4 shares model 2's runtime with its own tables; both
-            # window the raw, unscaled samples
-            raw = pcm.to(dtype).reshape(S * 2, 1152)
-            smr, new_state["psy2"] = psycho2.psycho_2(raw, state["psy2"], tabs)
-            smr = smr.reshape(S, 2, 32)
-        else:
-            smr = psycho3.psycho_3(window, scale_max.reshape(S * 2, 32), tabs,
-                                   low2).reshape(S, 2, 32)
+                smr = psycho3.psycho_3(window, scale_max.reshape(S * 2, 32), tabs,
+                                       low2).reshape(S, 2, 32)
 
-        sf_adj, scfsi = allocate.sf_transmission_pattern(sf_index)
-        sf_adj = torch.where(sbmask[:, None, None, :], sf_adj, 0)
-        ft = allocate._frame_tables(self._col("tablenum"))
-        xpad_len = xpad_len.long()
-        adb = self._col("adb_full") - self._col("dab_ext") * 8 - \
-            torch.where(xpad_len > 0, xpad_len, 2) * 8
-        if extra_slots is not None:
-            adb = adb + extra_slots.long() * 8
+        with obs.span("mp2.alloc"):
+            sf_adj, scfsi = allocate.sf_transmission_pattern(sf_index)
+            sf_adj = torch.where(sbmask[:, None, None, :], sf_adj, 0)
+            ft = allocate._frame_tables(self._col("tablenum"))
+            xpad_len = xpad_len.long()
+            adb = self._col("adb_full") - self._col("dab_ext") * 8 - \
+                torch.where(xpad_len > 0, xpad_len, 2) * 8
+            if extra_slots is not None:
+                adb = adb + extra_slots.long() * 8
 
-        is_joint = mode == MODE_JOINT
-        stereo_sel, mode_ext, jsbound = allocate.js_mode_select(
-            smr, scfsi, ft, sblimit, nch, is_joint, adb)
-        mode_final = torch.where(is_joint, torch.where(stereo_sel, MODE_STEREO, MODE_JOINT),
-                                 mode)
-        bit_alloc, adb_left = allocate.a_bit_allocation(
-            smr, scfsi, ft, sblimit, nch, jsbound, adb)
-        sbband = allocate.quantize(sf_adj, sb_sample, j_scale, j_sample, bit_alloc, ft,
-                                   sblimit, nch, jsbound)
+            is_joint = mode == MODE_JOINT
+            stereo_sel, mode_ext, jsbound = allocate.js_mode_select(
+                smr, scfsi, ft, sblimit, nch, is_joint, adb)
+            mode_final = torch.where(is_joint, torch.where(stereo_sel, MODE_STEREO, MODE_JOINT),
+                                     mode)
+            bit_alloc, adb_left = allocate.a_bit_allocation(
+                smr, scfsi, ft, sblimit, nch, jsbound, adb)
+        with obs.span("mp2.quantize"):
+            sbband = allocate.quantize(sf_adj, sb_sample, j_scale, j_sample, bit_alloc, ft,
+                                       sblimit, nch, jsbound)
 
         if self.pack_on_device == "frame":
-            cfgd = {k: self._col(k) for k in _CFG_COLS}
-            cfgd["nbal"] = self.cfg_nbal
-            fr_in = {"sf_index": sf_adj, "scfsi": scfsi, "bit_alloc": bit_alloc,
-                     "mode": mode_final, "mode_ext": mode_ext, "jsbound": jsbound,
-                     "extra": extra_slots}
-            frame_u8, scf_vals = framepack.pack_full_frame(
-                cfgd, fr_in, sbband, ft, xpad_len, xpad_buf, self.frame_bytes)
-            # ONE output buffer [S, n_bytes + 6]: frame | ScF-CRC values |
-            # mode | padding slot, byte-identical to the JAX "wire" layout
-            extra = extra_slots if extra_slots is not None else torch.zeros_like(mode)
-            wire = torch.cat([frame_u8, scf_vals, mode_final.to(torch.uint8)[:, None],
-                              extra.to(torch.uint8)[:, None]], dim=1)
+            with obs.span("mp2.pack"):
+                cfgd = {k: self._col(k) for k in _CFG_COLS}
+                cfgd["nbal"] = self.cfg_nbal
+                fr_in = {"sf_index": sf_adj, "scfsi": scfsi, "bit_alloc": bit_alloc,
+                         "mode": mode_final, "mode_ext": mode_ext, "jsbound": jsbound,
+                         "extra": extra_slots}
+                frame_u8, scf_vals = framepack.pack_full_frame(
+                    cfgd, fr_in, sbband, ft, xpad_len, xpad_buf, self.frame_bytes)
+                # ONE output buffer [S, n_bytes + 6]: frame | ScF-CRC values |
+                # mode | padding slot, byte-identical to the JAX "wire" layout
+                extra = extra_slots if extra_slots is not None else torch.zeros_like(mode)
+                wire = torch.cat([frame_u8, scf_vals, mode_final.to(torch.uint8)[:, None],
+                                  extra.to(torch.uint8)[:, None]], dim=1)
             return new_state, {"wire": wire}
 
         out = {
@@ -350,8 +356,9 @@ class Mp2Encoder(nn.Module):
             "smr": smr,
         }
         if self.pack_on_device:
-            out["payload"], out["payload_bits"] = binpack.pack_payload(
-                sbband, bit_alloc, ft, sblimit, nch, jsbound, self.payload_bytes)
+            with obs.span("mp2.pack"):
+                out["payload"], out["payload_bits"] = binpack.pack_payload(
+                    sbband, bit_alloc, ft, sblimit, nch, jsbound, self.payload_bytes)
         else:
             # int32, where the JAX step narrows to uint16 (torch's uint16
             # support is thin); the host packer widens either

@@ -127,6 +127,34 @@ def test_cli_decode_validates_and_profile_traces(tmp_path):
                      str(tmp_path / "prof")] + CPU) == 0
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     assert trace["traceEvents"]
+    assert {"mp2.step", "mp2.psy"} <= {e.get("name") for e in trace["traceEvents"]}
+
+
+def test_cli_tracefile_writes_the_spans(tmp_path):
+    """--tracefile records the encoder's spans and writes each at exit
+    through the LogTracer (<us>,<start us>,<name>,<duration us>,<parent>
+    [,<count>=<n>]): two MP2 frames give two mp2.step spans with their
+    stages inside, and the allocator tail's passes."""
+    wav = write_wav(tmp_path / "in.wav", music_like(10, seed=5)[:, :2 * 1152])
+    trace = tmp_path / "trace.csv"
+    assert cli.main(["-a", "-i", wav, "-o", str(tmp_path / "o.mp2"), "--tracefile",
+                     str(trace)] + CPU) == 0
+    lines = trace.read_text().splitlines()
+    assert lines[0] == "0,TRACER,startup"
+    rows = [line.split(",") for line in lines[1:]]
+    assert all(r[0].isdigit() and r[1].isdigit() and r[3].isdigit() for r in rows)
+    steps = [r for r in rows if r[2] == "mp2.step"]
+    assert len(steps) == 2 and all(r[4] == "" for r in steps)
+    assert {r[2] for r in rows if r[4] == "mp2.step"} == {"mp2.polyphase", "mp2.psy",
+                                                          "mp2.alloc", "mp2.quantize"}
+    tails = [r for r in rows if r[2] == "mp2.alloc.tail"]
+    passes = sum(int(r[5].removeprefix("passes=")) for r in tails)
+    assert len(tails) == 2 and passes == sum(r[2] == "mp2.tail.sync" for r in rows) >= 2
+    spans = [(int(a), int(a) + int(d)) for _, a, _, d, *_ in steps]
+    for r in rows:
+        if r[4] == "mp2.step":
+            a = int(r[1])
+            assert any(s0 <= a and a + int(r[3]) <= s1 + 1 for s0, s1 in spans), r
 
 
 _AUS = {}
