@@ -56,11 +56,23 @@ Phases (any failure exits non-zero and prints no result):
      + 10, and their f32 re-encode on the CPU makes the same decisions
      (gains, books, window sequence) in >= 90% of AUs.  Prints the device
      step and the host pack separately, streams x realtime and the
-     crash-recovery syncs per superframe.  No hand-written kernel is on this
-     path: both launch counts must stay 0.
+     crash-recovery syncs per superframe.  Neither psy-1 kernel is on this
+     path: both launch counts must stay 0 (the rate loop runs in its kernel,
+     once per AU).
   6b. the same configuration in f64 on the card at S=8 for 3 superframes
      against the f64 port on the CPU: >= 99% of AUs with identical integer
      decisions and every superframe valid.
+  6c. the rate-loop kernel (csrc/rate_loop.cu) against its plain version on
+     the card at the LC cell's shape: S=8192 stations of DAB+ LC 48 kHz
+     stereo 96k (f32, device pack), 4 superframes of the cell's music
+     (benchmark/traffic/music.py, seed 1234, station i at offset
+     base + 997 i), the kernel launched once per AU; each AU's rate inputs
+     kept and run again through the kernel and through rate_loop_plain:
+     no station over its budget where the plain version fits, and >= 98%
+     of station-AUs with q, gains and books identical.  Prints the
+     identical share, the kernel's device time per AU (CUDA events over 20
+     launches) beside its bound (rate_kernel.bound_bytes at 3.35 TB/s) and
+     the plain version's time per AU.
   7. HE-AAC (SBR) at full width: 48 kHz mono 48 kbps (subch 6, the sbr_48
      shape), S=2048, f32, the left channel of phase 6's music, 2 warm-up + 3
      timed superframes through encode_superframes(pack=False) and the
@@ -144,10 +156,11 @@ data only, and in both.
 
 Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b, 9, 10, 11) sets the launch
 counts to 0 just before it and reads them just after; the DAB+ runs must
-launch neither psy-1 kernel.  Every process the script starts (nvcc,
+launch neither psy-1 kernel (the rate-loop kernel runs once per AU of every
+DAB+ run on the card; phase 6c checks its count).  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
-and one JSON line with both kernels' figures (with the launches of each
+and one JSON line with the three kernels' figures (with the launches of each
 path that ran them); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package: the port's own host
@@ -609,6 +622,89 @@ def first_chunk_direct(streams, sig, k_of, torch, dev):
     return want
 
 
+def cell_music_pcm(n_streams, n_sf, seed):
+    """[n_sf, S, 2, 5760] int16: the LC cell's programme (benchmark/traffic/
+    music.py, 20 s from seed 1234), station i reading it from base + 997 i
+    (mod its length), base drawn from `seed`."""
+    import numpy as np
+    from benchmark.traffic import music
+    src = music.make(20 * 48000, 2, 1234)
+    L = src.shape[1]
+    base = int(np.random.default_rng(seed).integers(0, L))
+    t = np.arange(n_sf * 5760)
+    idx = (base + 997 * np.arange(n_streams)[:, None] + t[None, :]) % L     # [S, n]
+    pcm = src[:, idx]                                                        # [2, S, n]
+    return np.ascontiguousarray(pcm.reshape(2, n_streams, n_sf, 5760).transpose(2, 1, 0, 3))
+
+
+def phase_rate_kernel(card, torch, dev, S=8192, n_sf=4):
+    """Phase 6c (see the module docstring).  Returns the kernel's JSON entry."""
+    from odr_audioenc_tpu_torch.dabplus import encode as E
+    from odr_audioenc_tpu_torch.dabplus import model as dmodel
+    from odr_audioenc_tpu_torch.dabplus import rate_kernel as RK
+    cfg = dmodel.DabPlusConfig(48000, 12, 2, aot="lc")
+    enc = dmodel.DabPlusEncoder(cfg, S, dtype=torch.float32, device=dev, pack_on_device=True)
+    pcm = cell_music_pcm(S, n_sf, 2026)
+    kept, routed = [], E.rate_loop
+
+    def keep(inp, rounds=E.REFINE_ROUNDS):
+        kept.append((inp, rounds))
+        return routed(inp, rounds)
+    E.rate_loop = keep
+    try:
+        RK.launches = 0
+        state = enc.init_state()
+        for t in range(n_sf):
+            state, out = enc(state, torch.as_tensor(pcm[t], device=dev))
+        torch.cuda.synchronize()
+    finally:
+        E.rate_loop = routed
+    n_au = n_sf * cfg.num_aus
+    check(RK.launches == n_au == len(kept),
+          f"phase 6c: {RK.launches} kernel launches for {n_au} AUs")
+    same = total = over = 0
+    plain_s = []
+    for inp, rounds in kept:
+        q, gains, books, bits = E.rate_loop(inp, rounds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq, pg, pb, pbits = E.rate_loop_plain(inp, rounds)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+        ok = (q == pq).flatten(1).all(1) & (gains == pg).flatten(1).all(1) \
+            & (books == pb).flatten(1).all(1)
+        same += int(ok.sum())
+        total += S
+        over += int(((bits > inp.budget_bits) & (pbits <= inp.budget_bits)).sum())
+    check(over == 0, f"phase 6c: {over} station-AUs over budget where the plain version fits")
+    check(same >= 0.98 * total, f"phase 6c: only {same}/{total} station-AUs identical")
+    inp, rounds = kept[-1]
+    args = (inp, rounds, E._RATE_TABLE, E._RATE_PARAMS)
+    for _ in range(3):
+        RK.rate_loop(*args)
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(20):
+        RK.rate_loop(*args)
+    b.record()
+    torch.cuda.synchronize()
+    k_ms = a.elapsed_time(b) / 20
+    bound_ms = RK.bound_bytes(S, 2) / 3.35e12 * 1e3
+    p_ms = 1000.0 * statistics.median(plain_s)
+    print(f"phase 6c: rate_loop kernel vs rate_loop_plain, DAB+ LC 96k stereo, S={S} f32, "
+          f"{n_sf} superframes of the cell's music: {same}/{total} station-AUs identical "
+          f"({100.0 * same / total:.3f}%), none over budget where the plain version fits; "
+          f"kernel {k_ms:.3f} ms per AU (device, events over 20 launches), bound "
+          f"{bound_ms:.4f} ms (bytes, {RK.bound_bytes(S, 2) / 1e6:.1f} MB at 3.35 TB/s, "
+          f"{100.0 * bound_ms / k_ms:.2f}% of it); plain version {p_ms:.1f} ms per AU "
+          f"(median of {len(plain_s)}, host clock with a sync) [{card}]", flush=True)
+    return {"name": "rate_loop", "route": "cuda",
+            "source": "odr_audioenc_tpu_torch/csrc/rate_loop.cu", "replaces": None,
+            "launches": n_au, "identical_share": same / total, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None, "device_ms": k_ms,
+            "share": bound_ms / k_ms, "launches_by_path": {"lc_96 S=8192 (phase 6c)": n_au}}
+
+
 def phase_fleet(card, kernels, torch, dev):
     """Phase 9: fleet_64 through the odr-audioenc CLI's --streams on the
     card.  Returns (tonal_walk launches, tonal_noise launches) of the run."""
@@ -849,7 +945,7 @@ def main():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("tonal_walk", "tonal_noise")
+    names = ("tonal_walk", "tonal_noise", "rate_loop")
     with ThreadPoolExecutor(len(names)) as ex:
         secs = dict(zip(names, ex.map(timed_build, names)))
     for n in names:
@@ -1135,6 +1231,9 @@ def main():
           f"with every integer output equal to the CPU f64 port's, {len(flat64)} superframes "
           f"valid; step {1000.0 * statistics.mean(f64_step):.1f} ms", flush=True)
 
+    # ---- phase 6c: the rate-loop kernel vs its plain version at the LC cell's shape ------
+    rate_k = phase_rate_kernel(card, torch, dev)
+
     # ---- phases 7 / 7b / 7c: HE-AAC and HE-AAC v2 at full width, host pack ---------------
     # the phase 6 music (a 48 kHz HE-AAC superframe is 3 AUs of 1920 samples,
     # 5760 as LC's 6 of 960); mono configurations read its left channel
@@ -1267,7 +1366,8 @@ def main():
          "share": knb_ms / knd_ms,
          "launches_by_path": {"mp2_128 (phase 4)": n_l, "fused-noise (phase 4b)": noise_launches,
                               "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1],
-                              "bench (phase 11)": bench_l[1]}}]}))
+                              "bench (phase 11)": bench_l[1]}},
+        rate_k]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -14,6 +14,7 @@ that no a*b+c is contracted into an FMA the plain version does not make.
 ptxas reports each kernel's registers, shared memory and spills (-v); the
 report is kept beside the library as `<name>-<hash>.log`.
 """
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,8 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
@@ -82,3 +85,11 @@ def load(name):
         os.replace(tmp, so)
     lib = _LOADED[name] = ctypes.CDLL(str(so))
     return lib
+
+
+def on_device(device):
+    """The device context a launch on `device` needs: none when it is the
+    current one."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)

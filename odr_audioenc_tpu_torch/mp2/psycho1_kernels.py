@@ -23,7 +23,6 @@ takes the plain version and counts nothing.  The bound launcher, the table
 on each device and the int32 band geometry are cached, so a call on the
 current device does three allocations and one ctypes call.
 """
-import contextlib
 import ctypes
 
 import numpy as np
@@ -200,13 +199,6 @@ def _check_rows(name, power, cand, *more):
         raise ValueError(f"{name} takes 16-byte aligned rows (the kernel copies 16 B at a time)")
 
 
-def _on(device):
-    """The device context a launch needs: none when `device` is current."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def tonal_walk(power, cand):
     """power [B, 512] f32, cand [B, 512] bool -> (power' [B,512], member
     [B,512] bool, typ [B,512] bool): the whole tonal walk, list surgery
@@ -222,7 +214,7 @@ def tonal_walk(power, cand):
     pw = torch.empty_like(power)
     member = torch.empty_like(cand)
     typ = torch.empty_like(cand)
-    with _on(power.device):
+    with build.on_device(power.device):
         rc = _launcher("tonal_walk")(
             power.data_ptr(), cand.data_ptr(), tab.data_ptr(), pw.data_ptr(),
             member.data_ptr(), typ.data_ptr(), power.shape[0],
@@ -278,7 +270,7 @@ def tonal_noise(power, cand, energy, bmt, base, span):
     pw = torch.empty_like(power)
     tone_m = torch.empty_like(cand)
     noise_m = torch.empty_like(cand)
-    with _on(power.device):
+    with build.on_device(power.device):
         rc = _launcher("tonal_noise")(
             power.data_ptr(), cand.data_ptr(), energy.data_ptr(), tab.data_ptr(),
             base32.data_ptr(), span32.data_ptr(), pw.data_ptr(), tone_m.data_ptr(),
