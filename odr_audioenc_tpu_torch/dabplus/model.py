@@ -351,18 +351,21 @@ class DabPlusEncoder(nn.Module):
         S, ch, n = x.shape
         nau = self.cfg.num_aus
         x_sbr = torch.cat([state["sbr_hist"], x[..., :-SBR_SHIFT]], -1)
+        # spans dabplus.sbr.qmf and dabplus.sbr.env inside
         side, qmf_hist = SBR.sbr_side_analysis(x_sbr, state["qmf_hist"], self.sbr_params,
                                                nau, self.sbr_tables())
-        if ch == 2:
-            side = SBR.apply_coupling(side, self.sbr_params)
-        ps_bits = None
-        if ps_out:
-            ps_bits = SBR.ps_data_bits(ps_out["ps_iid"], ps_out["ps_iid_fine"],
-                                       ps_out["ps_fine"], ps_out["ps_icc"])
-        sbr_bits = SBR.payload_bits(side, self.sbr_params, nau, ps_bits=ps_bits)
-        # y[m] = sum_k h[k] xx[2m + k]
-        xx = torch.cat([state["ds_hist"], x], -1)
-        y = F.conv1d(xx.reshape(S * ch, 1, -1), self.ds_filter.view(1, 1, -1), stride=2)
+        with obs.span("dabplus.sbr.bits"):
+            if ch == 2:
+                side = SBR.apply_coupling(side, self.sbr_params)
+            ps_bits = None
+            if ps_out:
+                ps_bits = SBR.ps_data_bits(ps_out["ps_iid"], ps_out["ps_iid_fine"],
+                                           ps_out["ps_fine"], ps_out["ps_icc"])
+            sbr_bits = SBR.payload_bits(side, self.sbr_params, nau, ps_bits=ps_bits)
+        with obs.span("dabplus.sbr.decimate"):
+            # y[m] = sum_k h[k] xx[2m + k]
+            xx = torch.cat([state["ds_hist"], x], -1)
+            y = F.conv1d(xx.reshape(S * ch, 1, -1), self.ds_filter.view(1, 1, -1), stride=2)
         state = dict(state, sbr_hist=x[..., -SBR_SHIFT:], qmf_hist=qmf_hist,
                      ds_hist=xx[..., -(DS_TAPS - 1):])
         return y.reshape(S, ch, n // 2), state, side, sbr_bits
@@ -416,7 +419,8 @@ class DabPlusEncoder(nn.Module):
         ctx = self.aupack_ctx
         sbr_w = sbr_v = None
         if ctx is not None and self.is_sbr:
-            sbr_w, sbr_v = aupack.sbr_slot_groups(ctx, sbr_out)         # [S, nau, K]
+            with obs.span("dabplus.sbr.pack"):
+                sbr_w, sbr_v = aupack.sbr_slot_groups(ctx, sbr_out)     # [S, nau, K]
         leftover = state["bitres"].clamp(max=self.bitres_max)
         thr_nm1, pre_flag, wgt_last = state["thr_nm1"], state["pre_flag"], state["wgt_last"]
         outs = []
