@@ -8,7 +8,7 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card):
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. card: name and power limit (nvidia-smi); build both kernels from
+  1. card: name and power limit (nvidia-smi); build the four kernels from
      odr_audioenc_tpu_torch/csrc/ (one nvcc each, started together), time
      each build and print ptxas's registers / shared memory.
   2. tonal_walk vs its plain version on the card: the random B=64 recipe,
@@ -114,6 +114,15 @@ Phases (any failure exits non-zero and prints no result):
      the shard's rows equal to the unsplit batch's (here a second run).
      8d: X-PAD, S=8, pad_len=16, random pads: the device-mode encoder's
      bytes equal the host-mode encoder's through the native host packer.
+     8e: the AU-pack kernel (csrc/au_pack.cu) against the slot-grid pack
+     (au_content_groups + pack_au_content) on the card at the DAB+ cells'
+     shapes: LC 96k stereo at S=8192 over 4 superframes and HE-AAC 48k mono
+     at S=16,384 over 2, of the cells' music (as phase 6c), the kernel
+     launched once per AU; each AU's pack inputs kept and packed again by
+     both: (aubuf, au_bits, crc_part) identical on 100% of station-AUs.
+     Prints the kernel's device time per AU (CUDA events over 20 launches)
+     beside its bound (aupack_kernel.bound_bytes at 3.35 TB/s) and the
+     slot-grid pack's time per AU.
 
   9. the runtime's main path, BASELINE config 5 (the JAX bench's fleet_64,
      bench.py:161-199) through odr_audioenc_tpu_torch.cli.main(["--streams",
@@ -157,10 +166,11 @@ data only, and in both.
 Every main-path run (4, 4b, 5, 6, 7, 7b, 7c, 7d, 8b, 9, 10, 11) sets the launch
 counts to 0 just before it and reads them just after; the DAB+ runs must
 launch neither psy-1 kernel (the rate-loop kernel runs once per AU of every
-DAB+ run on the card; phase 6c checks its count).  Every process the script starts (nvcc,
+DAB+ run on the card, the AU-pack kernel once per AU of every device-pack
+run; phases 6c and 8e check their counts).  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
-and one JSON line with the three kernels' figures (with the launches of each
+and one JSON line with the four kernels' figures (with the launches of each
 path that ran them); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package: the port's own host
@@ -705,6 +715,86 @@ def phase_rate_kernel(card, torch, dev, S=8192, n_sf=4):
             "share": bound_ms / k_ms, "launches_by_path": {"lc_96 S=8192 (phase 6c)": n_au}}
 
 
+def phase_aupack_kernel(card, torch, dev):
+    """Phase 8e (see the module docstring).  Returns the kernel's JSON entry."""
+    import numpy as np
+    from odr_audioenc_tpu_torch.dabplus import aupack
+    from odr_audioenc_tpu_torch.dabplus import aupack_kernel as AK
+    from odr_audioenc_tpu_torch.dabplus import model as dmodel
+    shapes = (("LC 96k stereo", dmodel.DabPlusConfig(48000, 12, 2, aot="lc"), 8192, 4),
+              ("HE-AAC 48k mono", dmodel.DabPlusConfig(48000, 6, 1, aot="sbr"), 16384, 2))
+    lines, entry = [], None
+    for label, cfg, S, n_sf in shapes:
+        enc = dmodel.DabPlusEncoder(cfg, S, dtype=torch.float32, device=dev,
+                                    pack_on_device=True)
+        ctx = enc.aupack_ctx
+        pcm = cell_music_pcm(S, n_sf, 2027)[:, :, :cfg.channels]
+        kept, routed = [], aupack.pack_au
+
+        def keep(ctx_, o, is_last, pad_buf=None, pad_len=None, sbr_group=None):
+            kept.append((o, is_last, sbr_group))
+            return routed(ctx_, o, is_last, pad_buf, pad_len, sbr_group)
+        aupack.pack_au = keep
+        try:
+            AK.launches = 0
+            state = enc.init_state()
+            for t in range(n_sf):
+                state, _ = enc(state, torch.as_tensor(np.ascontiguousarray(pcm[t]), device=dev))
+            torch.cuda.synchronize()
+        finally:
+            aupack.pack_au = routed
+        n_au = n_sf * cfg.num_aus
+        check(AK.launches == n_au == len(kept),
+              f"phase 8e: {label}: {AK.launches} kernel launches for {n_au} AUs")
+        same = total = 0
+        plain_s = []
+        for o, is_last, sbr in kept:
+            got = aupack.pack_au(ctx, o, is_last, sbr_group=sbr)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            buf, bits, crc = aupack.pack_au_content(ctx, aupack.au_content_groups(
+                ctx, o, is_last, sbr_group=None if sbr is None else (*sbr, 4)))
+            buf = buf.to(torch.uint8)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+            ok = (got[0] == buf).all(1) & (got[1] == bits) & (got[2] == crc)
+            same += int(ok.sum())
+            total += S
+        check(same == total, f"phase 8e: {label}: only {same}/{total} station-AUs identical")
+        o, is_last, sbr = kept[-1]
+        for _ in range(3):
+            AK.pack_au(ctx, o, is_last, sbr_group=sbr)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            AK.pack_au(ctx, o, is_last, sbr_group=sbr)
+        b.record()
+        torch.cuda.synchronize()
+        k_ms = a.elapsed_time(b) / 20
+        nbytes = AK.bound_bytes(S, enc.core_channels, ctx.maxcb,
+                                n_sbr=0 if sbr is None else sbr[0].shape[1])
+        bound_ms = nbytes / 3.35e12 * 1e3
+        p_ms = 1000.0 * statistics.median(plain_s)
+        lines.append(f"{label}, S={S} f32, {n_sf} superframes of the cells' music: {same}/{total} "
+                     f"station-AUs identical; kernel {1000.0 * k_ms:.1f} us per AU (device, "
+                     f"events over 20 launches), bound {1000.0 * bound_ms:.1f} us (bytes, "
+                     f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, {100.0 * bound_ms / k_ms:.1f}% of it); "
+                     f"slot-grid pack {p_ms:.1f} ms per AU (median of {len(plain_s)}, host clock "
+                     f"with a sync)")
+        if entry is None:
+            entry = {"name": "au_pack", "route": "cuda",
+                     "source": "odr_audioenc_tpu_torch/csrc/au_pack.cu", "replaces": None,
+                     "launches": n_au, "identical_share": same / total, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                     "library_ms": None, "device_ms": k_ms, "share": bound_ms / k_ms,
+                     "launches_by_path": {}}
+        entry["launches_by_path"][f"{label} S={S} (phase 8e)"] = n_au
+        del enc, ctx, kept
+    print(f"phase 8e: au_pack kernel vs the slot-grid pack: {'; '.join(lines)} [{card}]",
+          flush=True)
+    return entry
+
+
 def phase_fleet(card, kernels, torch, dev):
     """Phase 9: fleet_64 through the odr-audioenc CLI's --streams on the
     card.  Returns (tonal_walk launches, tonal_noise launches) of the run."""
@@ -945,7 +1035,7 @@ def main():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("tonal_walk", "tonal_noise", "rate_loop")
+    names = ("tonal_walk", "tonal_noise", "rate_loop", "au_pack")
     with ThreadPoolExecutor(len(names)) as ex:
         secs = dict(zip(names, ex.map(timed_build, names)))
     for n in names:
@@ -1337,6 +1427,9 @@ def main():
     print(f"phase 8d: X-PAD (pad_len=16, {n_pad} random pad bytes), DAB+ LC 96k, S={s64}, 3 "
           f"superframes: device pack == native host pack on {p_same}/{3 * s64}", flush=True)
 
+    # ---- phase 8e: the AU-pack kernel vs the slot-grid pack at the DAB+ cells' shapes ---------
+    pack_k = phase_aupack_kernel(card, torch, dev)
+
     # ---- phase 9: fleet_64 through the CLI's --streams; phase 10: the single-stream CLIs ----
     fleet_l = phase_fleet(card, psycho1_kernels, torch, dev)
     cli_l = phase_cli(card, psycho1_kernels, torch)
@@ -1367,7 +1460,7 @@ def main():
          "launches_by_path": {"mp2_128 (phase 4)": n_l, "fused-noise (phase 4b)": noise_launches,
                               "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1],
                               "bench (phase 11)": bench_l[1]}},
-        rate_k]}))
+        rate_k, pack_k]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -21,7 +21,10 @@ multiplier tables (x^{8k} mod g), and the last AU's deterministic FIL-fill
 tail contributes via a host-precomputed table indexed by the fill width.
 
 The host tables are numpy under lru_cache; AuPackCtx turns them into
-tensors once, on the encoder's device.
+tensors once, on the encoder's device.  On the card one AU's content is
+packed by a hand-written kernel instead (aupack_kernel.py, one launch per
+AU): pack_au routes a CUDA tensor there and a CPU tensor to the slot-grid
+code here, its plain version.
 """
 from functools import lru_cache
 
@@ -29,6 +32,8 @@ import numpy as np
 import torch
 
 from .. import bitpack as BP
+from .. import obs
+from . import aupack_kernel
 from . import tables as AT
 
 NB = AT.MAX_SFB_LONG
@@ -164,6 +169,12 @@ def _crc_shift_tables(maxcb, total):
     ilut = np.array([_mulmod_int(0xFFFF, xp[j]) for j in range(total + 1)],
                     np.int64)
     return shift.astype(np.int32), ilut.astype(np.int32)
+
+
+@lru_cache(maxsize=None)
+def _crc16_bytes():
+    """The byte table of the CRC-16 (0x1021) with init 0: i(x) * x^16 mod g."""
+    return np.array([_mulmod_int(i, 1 << 16) for i in range(256)], np.int64)
 
 
 @lru_cache(maxsize=None)
@@ -356,7 +367,8 @@ class AuPackCtx:
         self.tx_short = ten(tx_short)
         self.gstart_long = ten(gstart_long)
         self.gstart_short = ten(gstart_short)
-        self.perm_short = ten(np.asarray(order + rest, np.int64))
+        perm_short = np.asarray(order + rest, np.int64)
+        self.perm_short = ten(perm_short)
         self.band_idx = ten(idxs.astype(np.int32))
         self.pair_even = ten(np.arange(480) % 2 == 0)
 
@@ -377,6 +389,12 @@ class AuPackCtx:
         self.crc16_R = ten(_crc16_R_np(self.maxcb * 8), torch.float32)
         self.fire_R = ten(_fire_R_np(72), torch.float32)
         self.rs_M = ten(_rs_M_np(), torch.float32)
+        # the AU-pack kernel's one table (aupack_kernel.TABLE_LAYOUT)
+        self.kernel_table = ten(aupack_kernel.table(dict(
+            q12=tabs["q12"], q34=tabs["q34"], p56=tabs["p56"], pair=_pair_tables_np(),
+            scf=tabs["scf"], bop_long=bol_l[::2], bop_short=bol_s[::2], perm_short=perm_short,
+            tx_long=idxs < self.max_sfb, tx_short=tx_short, gstart_long=gstart_long,
+            gstart_short=gstart_short, crc16=_crc16_bytes()), _xpow8(self.maxcb)))
 
 
 # ---------------------------------------------------------------------------
@@ -670,6 +688,28 @@ def pack_au_content(ctx, groups):
     return buf, bits.to(I32), c1
 
 
+def pack_au(ctx, o, is_last, pad_buf=None, pad_len=None, sbr_group=None):
+    """One AU's content pack: (aubuf [S, maxcb] uint8, au_bits [S] int32,
+    crc_part [S] int32).  o: the AU's decisions (CORE_KEYS; int32, the masks
+    bool); is_last, pad_buf / pad_len as au_content_groups takes them;
+    sbr_group: the AU's FIL slots (widths, values) [S, K].  CPU tensors take
+    the slot-grid pack (au_content_groups + pack_au_content), CUDA tensors
+    the hand-written kernel (one launch, one block per station;
+    aupack_kernel.py).  Both raise on what the kernel does not take
+    (aupack_kernel.check_inputs)."""
+    dev = aupack_kernel.check_inputs(ctx.n_ch, o, is_last, pad_buf, pad_len, sbr_group)
+    if dev.type == "cpu":
+        groups = au_content_groups(ctx, o, is_last, pad_buf=pad_buf, pad_len=pad_len,
+                                   sbr_group=None if sbr_group is None else (*sbr_group, 4))
+        buf, bits, crc = pack_au_content(ctx, groups)
+        return buf.to(torch.uint8), bits, crc
+    if dev.type != "cuda":
+        raise ValueError(f"pack_au: tensors on {dev}; the CPU or a CUDA card")
+    with obs.span("dabplus.aupack.kernel") as sp:
+        sp.add("aus", 1)
+        return aupack_kernel.pack_au(ctx, o, is_last, pad_buf, pad_len, sbr_group)
+
+
 # ---------------------------------------------------------------------------
 # SBR / PS FIL-element slots (built before the AU loop, over [S, nau])
 # ---------------------------------------------------------------------------
@@ -953,13 +993,12 @@ def pack_from_outputs(enc, out, pads=None, add_rs=True, ctx=None):
                                        if k.startswith(("sbr_", "ps_"))})
     bufs, bits, crcs = [], [], []
     for a in range(nau):
-        fr = {k: out[k][:, a] for k in CORE_KEYS}
-        groups = au_content_groups(
-            ctx, fr, a == nau - 1,
-            pad_buf=pb[:, a] if pb is not None else None,
-            pad_len=pl[:, a] if pl is not None else None,
-            sbr_group=(sw[:, a], sv[:, a], 4) if sw is not None else None)
-        buf, b, c = pack_au_content(ctx, groups)
+        fr = {k: out[k][:, a].to(torch.bool if k in aupack_kernel.BOOL_KEYS else I32)
+              .contiguous() for k in CORE_KEYS}
+        buf, b, c = pack_au(ctx, fr, a == nau - 1,
+                            pad_buf=pb[:, a] if pb is not None else None,
+                            pad_len=pl[:, a] if pl is not None else None,
+                            sbr_group=(sw[:, a], sv[:, a]) if sw is not None else None)
         bufs.append(buf)
         bits.append(b)
         crcs.append(c)

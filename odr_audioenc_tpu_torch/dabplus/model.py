@@ -455,15 +455,13 @@ class DabPlusEncoder(nn.Module):
                     with obs.span("dabplus.aupack"):
                         fr = {k: o[k] for k in aupack.CORE_KEYS if k != "wseq"}
                         fr["wseq"] = seq
-                        groups = aupack.au_content_groups(
+                        aubuf, abits, c1 = aupack.pack_au(
                             ctx, fr, a == nau - 1,
                             pad_buf=pad_buf[:, a] if pad_buf is not None else None,
                             pad_len=pad_len[:, a] if pad_len is not None else None,
-                            sbr_group=(sbr_w[:, a], sbr_v[:, a], 4) if sbr_w is not None
+                            sbr_group=(sbr_w[:, a], sbr_v[:, a]) if sbr_w is not None
                             else None)
-                        aubuf, abits, c1 = aupack.pack_au_content(ctx, groups)
-                        outs.append({"aubuf": aubuf.to(torch.uint8), "au_bits": abits,
-                                     "crc_part": c1})
+                        outs.append({"aubuf": aubuf, "au_bits": abits, "crc_part": c1})
                     continue
                 # narrow dtypes for the device-to-host copy; the packer widens
                 outs.append({"q": o["q"].to(torch.int16), "gains": o["gains"].to(torch.int16),
