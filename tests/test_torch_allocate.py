@@ -14,6 +14,7 @@ from odr_audioenc_tpu.mp2 import allocate as ja, model as jmodel, polyphase as j
 from odr_audioenc_tpu_torch.mp2 import allocate as ta
 
 from signals import frames_of, music_like, loud_tones
+from torch_cpu import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "48k_j128": [{"rate": 48000, "bitrate": 128, "mode": "j"}] * 4,

@@ -33,7 +33,7 @@ from odr_audioenc_tpu_torch.fec.rs import rs_dab, superframe_check_rs
 from odr_audioenc_tpu_torch.host.aacpack import firecode_crc
 from odr_audioenc_tpu_torch.host.dabplus_parse import validate_superframe
 
-import test_torch_aupack_e2e as E2E
+from torch_cpu import one_torch_thread  # noqa: F401
 
 S = 3
 NB = TA.NB
@@ -508,13 +508,6 @@ def test_synthetic_decisions_device_pack_equals_host_writers(cfg, seed):
         side = {k: tt(v) for k, v in out.items() if k.startswith("ps_")}
         ps_bits = TA._ps_slot_groups(tctx, side)[1].numpy()
         assert ((ps_bits + 2 + 7) // 8 >= 15).any(), "no PS extension reached its escape"
-
-
-@pytest.mark.parametrize("case", E2E.CASES[4:], ids=E2E.case_id)
-def test_device_pack_matches_host_and_jax_heaac(case):
-    """The HE-AAC and HE-AAC v2 configurations of test_torch_aupack_e2e.py's
-    comparison on four signals (here, to share the two files' time)."""
-    E2E.run_pack_case(case, False)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 aupack.py and the pack_on_device=True encoder), the twins of
 tests/test_aupack.py: on the same step outputs the port's device pack, the
 port's host writer and the JAX package's aupack.pack_from_outputs give the
-same bytes (8 configurations x 4 signals, and the X-PAD case); the
+same bytes (8 configurations x 4 signals, and the X-PAD case: run_pack_case,
+whose cases run in test_torch_aupack_lc.py and test_torch_aupack_heaac.py); the
 device-mode encoder gives the host-mode encoder's bytes, valid under RS, the
 firecode, the AU CRCs and validate_superframe; the multi-device dry run on
 the CPU.  Integers everywhere, so no tolerance.  The JAX pack runs eagerly
@@ -20,6 +21,8 @@ from odr_audioenc_tpu_torch.entry import dryrun_multichip
 from odr_audioenc_tpu_torch.fec.rs import superframe_check_rs
 from odr_audioenc_tpu_torch.host.aacpack import crc16_ccitt, firecode_crc
 from odr_audioenc_tpu_torch.host.dabplus_parse import validate_superframe
+
+from torch_cpu import one_torch_thread  # noqa: F401
 
 S = 3
 CASES = [
@@ -117,16 +120,6 @@ def run_pack_case(case, with_pad):
     assert np.array_equal(np.concatenate(devs), jdev), "device pack != JAX device pack"
 
 
-@pytest.mark.parametrize("case", CASES[:4], ids=case_id)
-def test_device_pack_matches_host_and_jax(case):
-    """The four AAC-LC configurations (the HE-AAC ones: test_torch_aupack.py)."""
-    run_pack_case(case, False)
-
-
-def test_device_pack_matches_host_and_jax_with_pads():
-    run_pack_case(CASES[0], True)
-
-
 @pytest.mark.parametrize("case", [CASES[0], CASES[4], CASES[5], CASES[6]], ids=case_id)
 def test_device_mode_encoder_equals_host_mode(case):
     """pack_on_device=True: one `wire` leaf per step; the same bytes as the
@@ -180,10 +173,15 @@ def test_device_mode_encoder_with_pads():
 
 def test_dryrun_multichip_cpu(capsys):
     """Two shards of two streams, one after another on the CPU: their rows
-    equal the unsplit batch's (dryrun_multichip raises otherwise)."""
+    equal the unsplit batch's (dryrun_multichip raises otherwise), and the
+    caller's thread count, here 2 rather than the module's 1, comes back."""
     threads = torch.get_num_threads()
-    dryrun_multichip(2, device="cpu")
-    assert torch.get_num_threads() == threads
+    torch.set_num_threads(2)
+    try:
+        dryrun_multichip(2, device="cpu")
+        assert torch.get_num_threads() == 2
+    finally:
+        torch.set_num_threads(threads)
     lines = capsys.readouterr().out.splitlines()
     assert len(lines) == 4 and all(
         line.endswith("2 devices, 4 streams OK, 4 rows as the unsplit batch") for line in lines)

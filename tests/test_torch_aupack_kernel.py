@@ -21,6 +21,8 @@ from odr_audioenc_tpu_torch.dabplus import aupack as TA
 from odr_audioenc_tpu_torch.dabplus import aupack_kernel as AK
 from odr_audioenc_tpu_torch.dabplus import model as TM
 
+from torch_cpu import one_torch_thread  # noqa: F401
+
 LC96 = dict(sample_rate=48000, subch=12, channels=2)
 SBR48 = dict(sample_rate=48000, subch=6, channels=1, aot="sbr")
 PS32 = dict(sample_rate=48000, subch=4, channels=2, aot="ps")

@@ -24,19 +24,10 @@ from odr_audioenc_tpu_torch.host.aacpack import firecode_crc
 from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
 from odr_audioenc_tpu_torch.mp2 import model
 
+from torch_cpu import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 S = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread: the suite runs several workers at
-    once, where torch's default of a thread per core makes the encoders'
-    many small ops wait on each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from odr_audioenc_tpu_torch import convert
 from odr_audioenc_tpu_torch.dabplus import model as TM
 
 from signals import loud_tones, music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 N_SF = 3
 _JAX = {}

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 from test_torch_dabplus import run_f32_case, run_f64_case
+from torch_cpu import one_torch_thread  # noqa: F401
 
 CONFIGS = {
     "32k_stereo_96": {"sample_rate": 32000, "subch": 12, "channels": 2},

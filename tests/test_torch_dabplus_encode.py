@@ -20,6 +20,7 @@ from odr_audioenc_tpu_torch.dabplus import model as TM
 
 from signals import music_like
 from test_bitcount import _ref_costs
+from torch_cpu import one_torch_thread  # noqa: F401
 
 F64 = torch.float64
 RTOL = 1e-9

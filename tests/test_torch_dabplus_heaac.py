@@ -23,6 +23,7 @@ from odr_audioenc_tpu_torch.dabplus import model as TM
 from odr_audioenc_tpu_torch.dabplus import sbr as TS
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 N_SF = 3
 _JAX = {}

@@ -14,6 +14,7 @@ from odr_audioenc_tpu_torch import convert
 
 from test_torch_dabplus_heaac import SIDE, check_stream, encode, jax_encoder, port_encoder, \
     run_f32_case, run_f64_case, signal
+from torch_cpu import one_torch_thread  # noqa: F401
 
 PS32 = {"sample_rate": 48000, "subch": 4, "channels": 2, "aot": "ps"}
 PS24 = {"sample_rate": 48000, "subch": 3, "channels": 2, "aot": "ps"}

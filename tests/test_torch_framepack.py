@@ -16,6 +16,7 @@ from odr_audioenc_tpu_torch.mp2 import allocate as ta, binpack as tbin, framepac
 from odr_audioenc_tpu_torch.mp2 import model as tmodel
 
 from signals import frames_of, music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 CASES = {
     "48k_j128_xpad16": ([{"rate": 48000, "bitrate": 128, "mode": "j", "pad_len": 16}] * 2, 16),

@@ -28,6 +28,7 @@ from odr_audioenc_tpu_torch.mp2 import model as tmodel
 
 import gen_golden
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 _RATES = (16000, 22050, 24000, 32000, 44100, 48000)
 # example arguments for every public function of the two tables modules

@@ -16,6 +16,7 @@ from odr_audioenc_tpu_torch.mp2 import model as tmodel, psycho1_kernels
 
 import gen_golden
 from signals import frames_of, music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 PSY1_GOLDENS = [n for n, c in gen_golden.CONFIGS.items() if c[5] == 1]

@@ -17,6 +17,7 @@ from odr_audioenc_tpu_torch import convert
 from odr_audioenc_tpu_torch.mp2 import model as tmodel
 
 import gen_golden
+from torch_cpu import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 OTHER_GOLDENS = [n for n, c in gen_golden.CONFIGS.items() if c[5] != 1]

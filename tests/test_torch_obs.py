@@ -17,18 +17,10 @@ from odr_audioenc_tpu_torch.host.mp2pack import Mp2Packer
 from odr_audioenc_tpu_torch.mp2 import model as mmodel
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 S = 2
 MP2_FRAMES, SUPERFRAMES = 3, 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread (the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from torch_cpu import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "odr_audioenc_tpu_torch"
 
@@ -364,19 +366,14 @@ def test_entry_points_default_to_the_card(make, tmp_path, monkeypatch):
             assert aacenc_cli.main(["-r", "64000"] + dev + [wav, str(out)]) == 0
         return cli.compute_device(kw.get("device"))
 
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)            # the suite's other workers share the cores
-    try:
-        if torch.cuda.is_available():
-            assert build().type == "cuda"
-        else:
-            cpu = "--compute-device cpu" if "cli" in make else 'device="cpu"'
-            with pytest.raises(RuntimeError, match=cpu):
-                build()
-            assert not out.exists()
-        assert build(device="cpu").type == "cpu"
-    finally:
-        torch.set_num_threads(threads)
+    if torch.cuda.is_available():
+        assert build().type == "cuda"
+    else:
+        cpu = "--compute-device cpu" if "cli" in make else 'device="cpu"'
+        with pytest.raises(RuntimeError, match=cpu):
+            build()
+        assert not out.exists()
+    assert build(device="cpu").type == "cpu"
     if make in ("run_fleet", "cli.main", "aacenc_cli.main"):
         assert out.stat().st_size > 0
 

@@ -10,6 +10,7 @@ from odr_audioenc_tpu.mp2 import polyphase as jpoly
 from odr_audioenc_tpu_torch.mp2 import polyphase as tpoly
 
 from signals import frames_of, music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _input(seed, S=3):

@@ -16,6 +16,7 @@ from odr_audioenc_tpu_torch import convert
 from odr_audioenc_tpu_torch.mp2 import psycho1 as tp, psycho1_fast as tf, psycho1_kernels
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 RATE_IDX = [1, 1, 0, 5]          # 48k, 48k, 44.1k, 24k rows
 # the JAX side jitted (eager op-by-op dispatch compiles every op on the CPU)

@@ -15,6 +15,7 @@ from odr_audioenc_tpu_torch.mp2 import psycho0 as tp0, psycho2 as tp2, psycho4 a
 from odr_audioenc_tpu_torch.mp2 import psycho_n1 as tpn1
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 NF = 6
 

@@ -13,6 +13,7 @@ from odr_audioenc_tpu.mp2 import psycho3 as jp3
 from odr_audioenc_tpu_torch.mp2 import psycho3 as tp3
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 P3 = jp3.make_psy3_tables(48000.0)
 

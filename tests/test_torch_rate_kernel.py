@@ -15,6 +15,8 @@ from odr_audioenc_tpu_torch.dabplus import model as TM
 from odr_audioenc_tpu_torch.dabplus import rate_kernel as RK
 from odr_audioenc_tpu_torch.dabplus import tables as AT
 
+from torch_cpu import one_torch_thread  # noqa: F401
+
 
 def _psy_args(S, ch=2, seed=0, short_every=3, device="cpu", dtype=torch.float32,
               budget=None, with_short=True):
@@ -71,24 +73,19 @@ def test_plain_loop_is_per_station():
     equals encode_au on the two halves, station for station: every integer
     output, and the float ones within 1e-12 (float64 on one CPU thread: the
     psy's matmuls may round by batch size)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        S = 12
-        enc, args = _psy_args(S, seed=5, dtype=torch.float64)
-        args["budget_bits"][4] = 150
-        whole = E.encode_au(**args)
-        assert whole["recovered"]
-        halves = []
-        for sl in (slice(0, 6), slice(6, 12)):
-            a = dict(args, spec=args["spec"][sl], max_sfb=args["max_sfb"][sl],
-                     budget_bits=args["budget_bits"][sl], n_ch=args["n_ch"][sl],
-                     is_short=args["is_short"][sl], seq=args["seq"][sl],
-                     pre_state=tuple(t[sl] for t in args["pre_state"]),
-                     weight_state=args["weight_state"][sl])
-            halves.append(E.encode_au(**a))
-    finally:
-        torch.set_num_threads(threads)
+    S = 12
+    enc, args = _psy_args(S, seed=5, dtype=torch.float64)
+    args["budget_bits"][4] = 150
+    whole = E.encode_au(**args)
+    assert whole["recovered"]
+    halves = []
+    for sl in (slice(0, 6), slice(6, 12)):
+        a = dict(args, spec=args["spec"][sl], max_sfb=args["max_sfb"][sl],
+                 budget_bits=args["budget_bits"][sl], n_ch=args["n_ch"][sl],
+                 is_short=args["is_short"][sl], seq=args["seq"][sl],
+                 pre_state=tuple(t[sl] for t in args["pre_state"]),
+                 weight_state=args["weight_state"][sl])
+        halves.append(E.encode_au(**a))
     for k, v in whole.items():
         if isinstance(v, torch.Tensor):
             cat = torch.cat([h[k] for h in halves])

@@ -21,20 +21,10 @@ from odr_audioenc_tpu_torch.io.wav import WavWriter
 
 import gen_golden
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 CPU = ["--compute-device", "cpu"]
 SF = 5760                     # samples per 48 kHz DAB+ superframe (LC: 6 x 960)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread: the suite runs several workers at once,
-    and torch's default of a thread per core makes the encoders' many small
-    ops wait on each other (a DAB+ superframe took 100x its time alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def write_wav(path, sig, rate=48000):

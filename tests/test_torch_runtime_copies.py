@@ -21,23 +21,13 @@ import pytest
 import torch
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 COPIES = ("io/__init__.py", "io/wav.py", "io/queue.py", "io/drift.py", "io/inputs.py",
           "io/jack_in.py", "outputs/__init__.py", "outputs/base.py", "outputs/file.py",
           "outputs/curve.py", "outputs/zmq_out.py", "outputs/edi_out.py",
           "host/sidecars.py", "host/log.py", "host/clocktai.py", "host/aacparse.py")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread: the suite runs several workers at once,
-    and torch's default of a thread per core makes the encoders' many small
-    ops wait on each other (a DAB+ superframe took 100x its time alone)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def both(name):
@@ -160,15 +150,25 @@ def test_expand_missing_samples_equals_original(channels):
 
 
 def _subprocess_trace(inputs, tmp_path):
+    """Run a subprocess input to its child's end: the child has exited and
+    both of the input's reader threads have read its pipes to EOF, so its
+    PCM is in the queue and its ICY line is parsed.  The stdout reader can
+    finish before the stderr reader, so the child's exit and a full queue
+    alone are not enough.  A 60 s guard fails a hang."""
     q = importlib.import_module(inputs.__name__.rsplit(".", 1)[0] + ".queue").SampleQueue()
     q.configure(1 << 20, push_block=False, channels=1)
     inp = inputs.SubprocessInput(q, ["/bin/sh", "-c",
                                      "echo \"Metadata update for StreamTitle: Test Song\" >&2; "
                                      f"head -c 9600 {tmp_path / 'pcm.raw'}"], 48000, 1)
     inp.prepare()
-    deadline = time.monotonic() + 5
-    while (len(q) < 9600 or not inp.fault_detected()) and time.monotonic() < deadline:
-        time.sleep(0.01)
+    try:
+        inp.proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        inp.close()
+        pytest.fail("the input's child ran on for 60 s")
+    for t in inp._threads:
+        t.join(timeout=60)
+        assert not t.is_alive(), "a reader of the child's pipes ran on for 60 s"
     text, fault = inp.get_icy_text(), inp.fault_detected()
     inp.close()
     return q.pop(9600)[0], text, fault

@@ -29,6 +29,7 @@ from odr_audioenc_tpu_torch.outputs.edi_out import crc16_genibus
 from odr_audioenc_tpu_torch.outputs.zmq_out import _command, _greeting, _metadata
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 MIXED = [{"codec": "mp2", "bitrate": 128, "mode": "j"},
          {"codec": "mp2", "bitrate": 192, "mode": "s"},
@@ -57,17 +58,6 @@ def superframe_ok(f):
     return (superframe_check_rs(np.frombuffer(f, np.uint8))
             and firecode_crc(f[2:11]) == (f[0] << 8 | f[1])
             and dabplus_parse.validate_superframe(f)[0])
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread: the comparisons need it (above), and
-    the suite runs several workers at once, where torch's default of a
-    thread per core makes the encoders' many small ops wait on each other."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _signals():

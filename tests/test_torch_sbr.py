@@ -17,6 +17,7 @@ from odr_audioenc_tpu_torch.dabplus import sbr as TS
 from odr_audioenc_tpu_torch.host.bitwriter import BitWriter
 
 from signals import loud_tones, music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 
 def _t(a):

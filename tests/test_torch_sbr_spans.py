@@ -12,18 +12,10 @@ from odr_audioenc_tpu_torch import obs
 from odr_audioenc_tpu_torch.dabplus import model as dmodel
 
 from signals import music_like
+from torch_cpu import one_torch_thread  # noqa: F401
 
 S, SUPERFRAMES = 2, 3
 STAGES = ("dabplus.sbr.qmf", "dabplus.sbr.env", "dabplus.sbr.bits", "dabplus.sbr.decimate")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The module on one torch thread (the suite runs several workers)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse=True)
