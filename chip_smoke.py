@@ -8,7 +8,7 @@ Usage (from the root of a checkout, on a machine with one NVIDIA card):
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result):
-  1. card: name and power limit (nvidia-smi); build the four kernels from
+  1. card: name and power limit (nvidia-smi); build the five kernels from
      odr_audioenc_tpu_torch/csrc/ (one nvcc each, started together), time
      each build and print ptxas's registers / shared memory.
   2. tonal_walk vs its plain version on the card: the random B=64 recipe,
@@ -44,6 +44,17 @@ Phases (any failure exits non-zero and prints no result):
      and tonal_walk never, >= 99.9% of frames byte-equal to phase 4's (the
      fused kernel labels the noise members as noise_fast does; with the 802
      flips of an exp2f noise stage 99.69% were).
+  4c. the MP2 allocation kernel (csrc/mp2_alloc.cu) against its plain
+     version (allocate.js_mode_select + a_bit_allocation) on the card at the
+     MP2 cells' shapes: S=8192 stations of mp2_48k.music128 and of
+     mp2_48k.mux_mix (the cells' station patterns), 20 frames of the cells'
+     music (benchmark/traffic, station i at offset base + 997 i), psy 1 f32,
+     the kernel launched once per frame; each frame's allocation inputs kept
+     and run again through the kernel and the plain version: mode, mode_ext,
+     jsbound, bit_alloc and adb_left identical on every station-frame.
+     Prints the kernel's device time per launch (CUDA events over 20
+     launches) beside its bound (alloc_kernel.bound_bytes at 3.35 TB/s),
+     the greedy's picks per station and the plain version's time.
   5. psy models 0, 2 and 3 on the f32 path at S=2048 (frame pack, a few
      steps each): every frame CRC-valid, step time printed.
   6. DAB+ AAC-LC main path at full width: 48 kHz stereo 96 kbps (subch 12,
@@ -170,7 +181,7 @@ DAB+ run on the card, the AU-pack kernel once per AU of every device-pack
 run; phases 6c and 8e check their counts).  Every process the script starts (nvcc,
 nvidia-smi, the CRC workers) is waited for, and before the result lines it
 checks that no child process is left.  Prints, before the last line, the card line
-and one JSON line with the four kernels' figures (with the launches of each
+and one JSON line with the five kernels' figures (with the launches of each
 path that ran them); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX and nothing of the JAX package: the port's own host
@@ -632,6 +643,112 @@ def first_chunk_direct(streams, sig, k_of, torch, dev):
     return want
 
 
+def alloc_picks(bit_alloc, jsbound, nch, sblimit, tablenum):
+    """Picks of the C greedy per station, from its result: one per rung
+    allocated (a joint pair's rung once) and one per slot (a joint pair
+    once) that ended below its max_alloc, which a pick froze."""
+    import numpy as np
+    from odr_audioenc_tpu_torch import tables as T
+    line = T.LINE[tablenum]                                                 # [S, 32]
+    nbal = np.where(line < 0, 0, T.NBAL[np.maximum(line, 0)])
+    maxa = (1 << nbal) - 1
+    sb = np.arange(32)[None, :]
+    valid = np.stack([sb < sblimit[:, None], (sb < sblimit[:, None]) & (nch[:, None] == 2)
+                      & (sb < jsbound[:, None])], 1)                       # ch 1 of a pair counts once
+    valid &= (maxa > 0)[:, None, :]
+    ba = np.where(valid, bit_alloc, 0)
+    return ba.sum((1, 2)) + (valid & (ba < maxa[:, None, :])).sum((1, 2))
+
+
+def phase_alloc_kernel(card, torch, dev, S=8192, n_frames=20):
+    """Phase 4c (see the module docstring).  Returns the kernel's JSON entry."""
+    import numpy as np
+    from benchmark import registry
+    from benchmark.stations import station_specs
+    from benchmark.traffic.programme import Programme
+    from odr_audioenc_tpu_torch.mp2 import alloc_kernel as AK
+    from odr_audioenc_tpu_torch.mp2 import allocate, model
+    lines, entry = [], None
+    for cell in ("mp2_48k.music128", "mp2_48k.mux_mix"):
+        wl, conf = registry.cell(cell)
+        wl["stations"] = S
+        prog = Programme(wl, conf["channels"], conf["samples_per_step"], 2028,
+                         registry.module("traffic", wl["programme"]["kind"]).make,
+                         conf["sample_rate"])
+        cfg = model.make_config(station_specs(conf, wl))
+        enc = model.Mp2Encoder(cfg, psy_model=1, dtype=torch.float32, device=dev,
+                               pack_on_device="frame")
+        xpad = torch.zeros((S,), dtype=torch.int64, device=dev)
+        kept, routed = [], allocate.bit_allocation
+
+        def keep(*args):
+            kept.append(args)
+            return routed(*args)
+        allocate.bit_allocation = keep
+        try:
+            AK.launches = 0
+            state = enc.init_state()
+            for k in range(n_frames):
+                pcm = torch.as_tensor(np.ascontiguousarray(prog.batch(k)[0]), device=dev)
+                state, _ = enc._encode_step(state, pcm, xpad)
+            torch.cuda.synchronize()
+        finally:
+            allocate.bit_allocation = routed
+        check(AK.launches == n_frames == len(kept),
+              f"phase 4c: {cell}: {AK.launches} kernel launches for {n_frames} frames")
+        same = total = 0
+        plain_s, picks = [], []
+        for smr, scfsi, ft, tablenum, sblimit, nch, is_joint, adb in kept:
+            got = allocate.bit_allocation(smr, scfsi, ft, tablenum, sblimit, nch, is_joint, adb)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stereo, ext, jsb = allocate.js_mode_select(smr, scfsi, ft, sblimit, nch, is_joint,
+                                                       adb)
+            ba, left = allocate.a_bit_allocation(smr, scfsi, ft, sblimit, nch, jsb, adb)
+            torch.cuda.synchronize()
+            plain_s.append(time.perf_counter() - t0)
+            ok = (got[0] == stereo) & (got[1] == ext) & (got[2] == jsb) \
+                & (got[3] == ba).flatten(1).all(1) & (got[4] == left)
+            same += int(ok.sum())
+            total += S
+            picks.append(alloc_picks(*(t.cpu().numpy() for t in (got[3], got[2], nch, sblimit,
+                                                                  tablenum))))
+        check(same == total, f"phase 4c: {cell}: only {same}/{total} station-frames identical")
+        args = kept[-1]
+        kargs = (args[0], args[1], *args[3:])
+        for _ in range(3):
+            AK.allocate(*kargs)
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            AK.allocate(*kargs)
+        b.record()
+        torch.cuda.synchronize()
+        k_ms = a.elapsed_time(b) / 20
+        bound_ms = AK.bound_bytes(S) / 3.35e12 * 1e3
+        p_ms = 1000.0 * statistics.median(plain_s)
+        picks = np.concatenate(picks)
+        lines.append(f"{cell}, S={S} f32, {n_frames} frames of the cell's music: {same}/{total} "
+                     f"station-frames identical; kernel {1000.0 * k_ms:.1f} us per launch "
+                     f"(device, events over 20 launches), bound {1000.0 * bound_ms:.2f} us "
+                     f"(bytes, {AK.bound_bytes(S) / 1e6:.2f} MB at 3.35 TB/s, "
+                     f"{100.0 * bound_ms / k_ms:.1f}% of it); picks per station mean "
+                     f"{picks.mean():.1f}, max {picks.max()}; plain version {p_ms:.1f} ms "
+                     f"(median of {len(plain_s)}, host clock with a sync)")
+        if entry is None:
+            entry = {"name": "mp2_alloc", "route": "cuda",
+                     "source": "odr_audioenc_tpu_torch/csrc/mp2_alloc.cu", "replaces": None,
+                     "launches": n_frames, "identical_share": same / total, "ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": "dependent picks",
+                     "library_ms": None, "device_ms": k_ms, "share": bound_ms / k_ms,
+                     "launches_by_path": {}}
+        entry["launches_by_path"][f"{cell} S={S} (phase 4c)"] = n_frames
+        del enc, kept
+    print(f"phase 4c: mp2_alloc kernel vs js_mode_select + a_bit_allocation: "
+          f"{'; '.join(lines)} [{card}]", flush=True)
+    return entry
+
+
 def cell_music_pcm(n_streams, n_sf, seed):
     """[n_sf, S, 2, 5760] int16: the LC cell's programme (benchmark/traffic/
     music.py, 20 s from seed 1234), station i reading it from base + 997 i
@@ -1035,7 +1152,7 @@ def main():
         build.load(name)
         return time.perf_counter() - t0
 
-    names = ("tonal_walk", "tonal_noise", "rate_loop", "au_pack")
+    names = ("tonal_walk", "tonal_noise", "rate_loop", "au_pack", "mp2_alloc")
     with ThreadPoolExecutor(len(names)) as ex:
         secs = dict(zip(names, ex.map(timed_build, names)))
     for n in names:
@@ -1244,6 +1361,9 @@ def main():
           f"{fstep_ms:.3f} ms (mean of {TIMED}), {frt:.1f} streams x realtime "
           f"(phase 4, tonal: {step_ms:.3f} ms) [{card}]; vs phase 4: {same_bytes} frames "
           f"byte-equal, {same_f}/{len(flat)} with the same bit_alloc", flush=True)
+
+    # ---- phase 4c: the allocation kernel vs its plain version at the MP2 cells' shapes ----
+    alloc_k = phase_alloc_kernel(card, torch, dev)
 
     # ---- phase 5: psy models 0, 2 and 3 at full width ---------------------------------
     for psy, (warm, timed) in ((0, (2, 3)), (2, (2, 3)), (3, (1, 2))):
@@ -1460,7 +1580,7 @@ def main():
          "launches_by_path": {"mp2_128 (phase 4)": n_l, "fused-noise (phase 4b)": noise_launches,
                               "fleet_64 (phase 9)": fleet_l[1], "cli (phase 10)": cli_l[1],
                               "bench (phase 11)": bench_l[1]}},
-        rate_k, pack_k]}))
+        alloc_k, rate_k, pack_k]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

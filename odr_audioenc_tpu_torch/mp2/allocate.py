@@ -11,6 +11,7 @@ import torch
 from .. import obs
 from .. import tables as T
 from ..device import const
+from . import alloc_kernel
 
 SBLIMIT = 32
 BANC = 32  # header bits
@@ -290,6 +291,25 @@ def a_bit_allocation(smr, scfsi, ft, sblimit, nch, jsbound, adb):
                       dim=1)
     with obs.span("mp2.alloc.tail") as tail:
         return _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound, tail)
+
+
+def bit_allocation(smr, scfsi, ft, tablenum, sblimit, nch, is_joint, adb):
+    """The frame's bit allocation: js_mode_select, then a_bit_allocation at
+    the jsbound it chose.  CPU tensors take that vectorised (plain) version;
+    CUDA tensors the hand-written kernel (one launch, one warp per station;
+    alloc_kernel.py), which raises on what it does not take.  Returns
+    (mode_is_stereo, mode_ext, jsbound, bit_alloc, adb_left) in the plain
+    version's dtypes."""
+    dev = smr.device
+    if dev.type == "cpu":
+        stereo, mode_ext, jsbound = js_mode_select(smr, scfsi, ft, sblimit, nch, is_joint, adb)
+        bit_alloc, adb_left = a_bit_allocation(smr, scfsi, ft, sblimit, nch, jsbound, adb)
+        return stereo, mode_ext, jsbound, bit_alloc, adb_left
+    if dev.type != "cuda":
+        raise ValueError(f"bit_allocation: tensors on {dev}; the CPU or a CUDA card")
+    with obs.span("mp2.alloc.kernel") as sp:
+        sp.add("launches", 1)
+        return alloc_kernel.allocate(smr, scfsi, tablenum, sblimit, nch, is_joint, adb)
 
 
 def _alloc_tail(ba0, spent0, ad, smr, scfsi, ft, sblimit, nch, jsbound, tail):

@@ -319,12 +319,10 @@ class Mp2Encoder(nn.Module):
                 adb = adb + extra_slots.long() * 8
 
             is_joint = mode == MODE_JOINT
-            stereo_sel, mode_ext, jsbound = allocate.js_mode_select(
-                smr, scfsi, ft, sblimit, nch, is_joint, adb)
+            stereo_sel, mode_ext, jsbound, bit_alloc, adb_left = allocate.bit_allocation(
+                smr, scfsi, ft, self._col("tablenum"), sblimit, nch, is_joint, adb)
             mode_final = torch.where(is_joint, torch.where(stereo_sel, MODE_STEREO, MODE_JOINT),
                                      mode)
-            bit_alloc, adb_left = allocate.a_bit_allocation(
-                smr, scfsi, ft, sblimit, nch, jsbound, adb)
         with obs.span("mp2.quantize"):
             sbband = allocate.quantize(sf_adj, sb_sample, j_scale, j_sample, bit_alloc, ft,
                                        sblimit, nch, jsbound)
