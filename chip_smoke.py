@@ -127,10 +127,12 @@ Phases (any failure exits non-zero and prints no result):
      bytes equal the host-mode encoder's through the native host packer.
      8e: the AU-pack kernel (csrc/au_pack.cu) against the slot-grid pack
      (au_content_groups + pack_au_content) on the card at the DAB+ cells'
-     shapes: LC 96k stereo at S=8192 over 4 superframes and HE-AAC 48k mono
-     at S=16,384 over 2, of the cells' music (as phase 6c), the kernel
-     launched once per AU; each AU's pack inputs kept and packed again by
-     both: (aubuf, au_bits, crc_part) identical on 100% of station-AUs.
+     shapes: LC 96k stereo at S=8192 over 4 superframes, HE-AAC 48k mono
+     and HE-AAC v2 (PS) 32k stereo, its FIL group carrying the PS
+     extension, at S=16,384 over 2 each, of the cells' music (as phase 6c),
+     the kernel launched once per AU; each AU's pack inputs kept and packed
+     again by both: (aubuf, au_bits, crc_part) identical on 100% of
+     station-AUs.
      Prints the kernel's device time per AU (CUDA events over 20 launches)
      beside its bound (aupack_kernel.bound_bytes at 3.35 TB/s) and the
      slot-grid pack's time per AU.
@@ -839,7 +841,8 @@ def phase_aupack_kernel(card, torch, dev):
     from odr_audioenc_tpu_torch.dabplus import aupack_kernel as AK
     from odr_audioenc_tpu_torch.dabplus import model as dmodel
     shapes = (("LC 96k stereo", dmodel.DabPlusConfig(48000, 12, 2, aot="lc"), 8192, 4),
-              ("HE-AAC 48k mono", dmodel.DabPlusConfig(48000, 6, 1, aot="sbr"), 16384, 2))
+              ("HE-AAC 48k mono", dmodel.DabPlusConfig(48000, 6, 1, aot="sbr"), 16384, 2),
+              ("HE-AAC v2 32k stereo", dmodel.DabPlusConfig(48000, 4, 2, aot="ps"), 16384, 2))
     lines, entry = [], None
     for label, cfg, S, n_sf in shapes:
         enc = dmodel.DabPlusEncoder(cfg, S, dtype=torch.float32, device=dev,

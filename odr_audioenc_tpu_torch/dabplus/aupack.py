@@ -922,7 +922,8 @@ def sbr_slot_groups(ctx, side):
         groups.append(ah_g(0))
 
     if enc.is_ps:
-        ps_groups, ps_bits = _ps_slot_groups(ctx, side)
+        with obs.span("dabplus.sbr.pack.ps"):
+            ps_groups, ps_bits = _ps_slot_groups(ctx, side)
         ext_bits = 2 + ps_bits                      # ext id + ps data
         ext_sz = torch.div(ext_bits + 7, 8, rounding_mode="floor")
         esc = ext_sz >= 15

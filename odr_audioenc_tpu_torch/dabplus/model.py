@@ -318,27 +318,29 @@ class DabPlusEncoder(nn.Module):
         x_ps = torch.cat([state["ps_hist"], x[..., :-PS_SHIFT]], -1)
         state = dict(state, ps_hist=x[..., -PS_SHIFT:])
         aus = x_ps.reshape(S, 2, nau, ne, n // (nau * ne)).permute(2, 0, 3, 1, 4)
-        iid, icc, iid_fine, use_fine = SBR.iid_parameters(
-            aus[..., 0, :], aus[..., 1, :], self.cfg.sample_rate, self.ps_win,
-            self.ps_masks)                                    # [nau, S, ne, 20]
-        if ne > 1:
-            # static-image stabilisation: per band, envelope estimates that
-            # agree within `tol` steps collapse to their rounded mean
-            def stab(v, tol):
-                spread = v.amax(-2, keepdim=True) - v.amin(-2, keepdim=True)
-                mean = torch.round(v.to(self.dtype).mean(-2, keepdim=True)).to(v.dtype)
-                return torch.where(spread <= tol, mean.expand(v.shape), v)
-            iid = stab(iid, 1)
-            iid_fine = stab(iid_fine, 2)
+        with obs.span("dabplus.ps.iid"):
+            iid, icc, iid_fine, use_fine = SBR.iid_parameters(
+                aus[..., 0, :], aus[..., 1, :], self.cfg.sample_rate, self.ps_win,
+                self.ps_masks)                                # [nau, S, ne, 20]
+            if ne > 1:
+                # static-image stabilisation: per band, envelope estimates that
+                # agree within `tol` steps collapse to their rounded mean
+                def stab(v, tol):
+                    spread = v.amax(-2, keepdim=True) - v.amin(-2, keepdim=True)
+                    mean = torch.round(v.to(self.dtype).mean(-2, keepdim=True)).to(v.dtype)
+                    return torch.where(spread <= tol, mean.expand(v.shape), v)
+                iid = stab(iid, 1)
+                iid_fine = stab(iid_fine, 2)
         out = {"ps_iid": iid.movedim(0, 1), "ps_icc": icc.movedim(0, 1),
                "ps_iid_fine": iid_fine.movedim(0, 1),
                # one iid_mode per frame: fine when any envelope needs the range
                "ps_fine": use_fine.any(-1).movedim(0, 1)}
-        m = 0.5 * (x[:, 0:1] + x[:, 1:2])
-        e_lr = (x[:, 0:1] * x[:, 0:1] + x[:, 1:2] * x[:, 1:2]).sum(-1, keepdim=True)
-        e_m = (m * m).sum(-1, keepdim=True)
-        g = torch.sqrt(0.5 * e_lr / e_m.clamp(min=1e-3)).clamp(1.0, 2.0)
-        return m * g, state, out
+        with obs.span("dabplus.ps.downmix"):
+            m = 0.5 * (x[:, 0:1] + x[:, 1:2])
+            e_lr = (x[:, 0:1] * x[:, 0:1] + x[:, 1:2] * x[:, 1:2]).sum(-1, keepdim=True)
+            e_m = (m * m).sum(-1, keepdim=True)
+            g = torch.sqrt(0.5 * e_lr / e_m.clamp(min=1e-3)).clamp(1.0, 2.0)
+            return m * g, state, out
 
     def _sbr_analysis(self, x, state, ps_out):
         """HE-AAC: the SBR side data of the stream delayed by SBR_SHIFT
@@ -392,7 +394,9 @@ class DabPlusEncoder(nn.Module):
         state = dict(state, pend=x_new[..., -cfg.au_samples:])
         sbr_out, total = {}, nau * self.budget_au
         if self.is_ps:
-            with obs.span("dabplus.ps"):
+            with obs.span("dabplus.ps") as ps:
+                ps.add("aus", nau)
+                ps.add("envelopes", self.ps_nenv)
                 x, state, sbr_out = self._ps_analysis(x, state)
         if self.is_sbr:
             with obs.span("dabplus.sbr"):
